@@ -1,0 +1,13 @@
+"""Madrigal-TPU in PyTorch: the port of `madrigal_tpu` to PyTorch and CUDA.
+
+Module paths mirror the JAX package's (`madrigal_tpu_torch/models/hgt.py`
+<-> `madrigal_tpu/models/hgt.py`). The package imports torch and numpy,
+never JAX and nothing of `madrigal_tpu`. Entry points run on `cuda`
+unless the caller asks for the CPU (`device="cpu"`, `--platform cpu`).
+
+This slice ports the serving path: checkpoint -> full-KG HGT pass ->
+per-drug encode -> all-pairs scores through the hand-written bilinear
+kernel (`csrc/bilinear.cu`) -> triple queries.
+"""
+
+__version__ = "0.1.0"

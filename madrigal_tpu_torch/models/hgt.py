@@ -1,0 +1,195 @@
+"""Heterogeneous Graph Transformer KG encoder, forward (port of
+`madrigal_tpu/models/hgt.py`; reference PyG HGTConv stack,
+models.py:71-96).
+
+Per layer:
+  per node type t:  [k|q|v] = x_t @ W_kqv_t            ([N_t, 3F], H heads)
+  per edge type r = (s, rel, d), per head h:
+      k' = k_s @ K_rel[r, h],  v' = v_s @ V_rel[r, h]
+      alpha_e = (q_d[dst_e] . k'[src_e]) * p_rel[r, h] / sqrt(D)
+  softmax_scope 'per_edge_type': softmax per edge type, then the group
+  aggregate ('sum' | 'mean' | 'max') over edge types; 'global': one
+  softmax over all incoming edges of a destination across edge types.
+  per node type t:  out = a_lin_t(gelu(m_t)); g = sigmoid(skip_t);
+                    out = g * out + (1 - g) * x_t   (when widths match)
+
+This is the plain per-head math. The JAX package's block-diagonal
+relation matmul and indicator-matmul head logits are TPU lane-layout
+forms of the same sums (hgt.py:70-121), and its source-sorted backward
+layouts only matter for training.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import HGTConfig
+from ..data.kg import EdgeType, HeteroKGBatch, edge_key
+from ..ops.segment import segment_softmax, segment_sum
+
+
+def _relation_transform(x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    """[N, H*D] @ per-head [H, D, D] -> [N, H*D]."""
+    H, D, _ = rel.shape
+    return torch.einsum("nhd,hde->nhe", x.reshape(-1, H, D), rel).reshape(
+        -1, H * D)
+
+
+class HGTConv(nn.Module):
+    def __init__(self, in_dims: Dict[str, int], edge_types: Sequence[EdgeType],
+                 out_channels: int, heads: int, group: str = "sum",
+                 softmax_scope: str = "per_edge_type"):
+        super().__init__()
+        F_ = out_channels
+        if F_ % heads:
+            raise ValueError(f"out_channels {F_} not divisible by {heads}")
+        if softmax_scope not in ("per_edge_type", "global"):
+            raise NotImplementedError(softmax_scope)
+        if group not in ("sum", "mean", "max"):
+            raise NotImplementedError(group)
+        self.F, self.H, self.D = F_, heads, F_ // heads
+        self.group = group
+        self.softmax_scope = softmax_scope
+        self.node_types = tuple(sorted(in_dims))
+        self.edge_types = tuple(tuple(e) for e in edge_types)
+        self.dst_types = {et[2] for et in self.edge_types}
+        for nt in self.node_types:
+            self.add_module(f"kqv__{nt}", nn.Linear(in_dims[nt], 3 * F_))
+        for et in self.edge_types:
+            ek = edge_key(et)
+            self.register_parameter(f"k_rel__{ek}", nn.Parameter(
+                torch.empty(heads, self.D, self.D)))
+            self.register_parameter(f"v_rel__{ek}", nn.Parameter(
+                torch.empty(heads, self.D, self.D)))
+            self.register_parameter(f"p_rel__{ek}",
+                                    nn.Parameter(torch.ones(heads)))
+        for nt in self.node_types:
+            if nt not in self.dst_types:
+                continue  # no incoming edges: the node keeps its input
+            self.add_module(f"out__{nt}", nn.Linear(F_, F_))
+            if in_dims[nt] == F_:
+                self.register_parameter(f"skip__{nt}",
+                                        nn.Parameter(torch.ones(1)))
+        self.out_dims = {nt: (F_ if nt in self.dst_types else in_dims[nt])
+                         for nt in self.node_types}
+
+    def _edge_logits_values(self, g: HeteroKGBatch, et: EdgeType,
+                            q: Dict[str, torch.Tensor],
+                            k: Dict[str, torch.Tensor],
+                            v: Dict[str, torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One edge type's per-edge logits [E, H] and values [E, F]."""
+        src_t, _, dst_t = et
+        ek = edge_key(et)
+        src = g.edge_src[ek].long()
+        dst = g.edge_dst[ek].long()
+        k_s = _relation_transform(k[src_t], getattr(self, f"k_rel__{ek}"))
+        v_s = _relation_transform(v[src_t], getattr(self, f"v_rel__{ek}"))
+        prod = q[dst_t][dst] * k_s[src]  # [E, F]
+        logits = (prod.reshape(-1, self.H, self.D).sum(-1)
+                  * getattr(self, f"p_rel__{ek}")[None, :]
+                  / math.sqrt(self.D))
+        return logits, v_s[src]
+
+    def _aggregate(self, logits, vals, dst, mask, n_dst):
+        alpha = segment_softmax(logits, dst, n_dst, mask=mask)  # [E, H]
+        msg = vals * alpha.repeat_interleave(self.D, dim=-1)
+        return segment_sum(msg, dst, n_dst)
+
+    def forward(self, g: HeteroKGBatch, x_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        k_dict, q_dict, v_dict = {}, {}, {}
+        for nt in self.node_types:
+            kqv = getattr(self, f"kqv__{nt}")(x_dict[nt])
+            k_dict[nt], q_dict[nt], v_dict[nt] = kqv.split(self.F, dim=-1)
+
+        agg: Dict[str, list] = {nt: [] for nt in self.node_types}
+        pending: Dict[str, list] = {nt: [] for nt in self.node_types}
+        for et in self.edge_types:
+            dst_t = et[2]
+            ek = edge_key(et)
+            mask = g.edge_mask[ek]
+            n_dst = g.num_nodes(dst_t)
+            dst_safe = torch.where(mask, g.edge_dst[ek].long(),
+                                   torch.full_like(g.edge_dst[ek].long(),
+                                                   n_dst))
+            logits, vals = self._edge_logits_values(g, et, q_dict, k_dict,
+                                                    v_dict)
+            if self.softmax_scope == "global":
+                pending[dst_t].append((logits, vals, dst_safe, mask))
+            else:
+                agg[dst_t].append(
+                    self._aggregate(logits, vals, dst_safe, mask, n_dst))
+
+        if self.softmax_scope == "global":
+            # one softmax over the concatenation of every edge type's
+            # incoming edges per destination node (PyG 2.3 HGTConv)
+            for nt, items in pending.items():
+                if items:
+                    agg[nt].append(self._aggregate(
+                        *(torch.cat([it[i] for it in items]) for i in range(4)),
+                        g.num_nodes(nt)))
+
+        out_dict = {}
+        for nt in self.node_types:
+            x = x_dict[nt]
+            if not agg[nt]:
+                out_dict[nt] = x
+                continue
+            stacked = torch.stack(agg[nt])
+            if self.softmax_scope == "global" or self.group == "sum":
+                m = stacked.sum(0)
+            elif self.group == "mean":
+                m = stacked.mean(0)
+            else:
+                m = stacked.amax(0)
+            out = getattr(self, f"out__{nt}")(F.gelu(m, approximate="none"))
+            skip = getattr(self, f"skip__{nt}", None)
+            if skip is not None:
+                gate = torch.sigmoid(skip)
+                out = gate * out + (1.0 - gate) * x
+            out_dict[nt] = out
+        return out_dict
+
+
+class HGTEncoder(nn.Module):
+    """HGT stack + per-node-type output head (reference HGT class,
+    models.py:71-96: relu after conv i for 1 <= i <= num_layers - 2, then
+    lin per node type to embed_dim; only 'drug' with drug_only_head)."""
+
+    def __init__(self, cfg: HGTConfig, embed_dim: int,
+                 node_dims: Dict[str, int], edge_types: Sequence[EdgeType],
+                 drug_only_head: bool = False):
+        super().__init__()
+        if cfg.compute_dtype not in (None, "float32"):
+            raise NotImplementedError(
+                f"hgt.compute_dtype={cfg.compute_dtype!r}: the reduced-"
+                "precision edge pipeline is not ported yet (ROADMAP)")
+        if cfg.shard_axis is not None:
+            raise NotImplementedError(
+                "hgt.shard_axis: graph-parallel HGT belongs to the "
+                "multi-GPU port (ROADMAP)")
+        self.num_layers = cfg.num_layers
+        dims = dict(node_dims)
+        for i in range(cfg.num_layers):
+            conv = HGTConv(dims, edge_types, cfg.hidden_dim, cfg.att_heads,
+                           group=cfg.group, softmax_scope=cfg.softmax_scope)
+            self.add_module(f"conv_{i}", conv)
+            dims = conv.out_dims
+        self.head_types = (("drug",) if drug_only_head
+                           else tuple(sorted(node_dims)))
+        for nt in self.head_types:
+            self.add_module(f"lin__{nt}", nn.Linear(dims[nt], embed_dim))
+
+    def forward(self, g: HeteroKGBatch) -> Dict[str, torch.Tensor]:
+        x = dict(g.node_feats)
+        for i in range(self.num_layers):
+            x = getattr(self, f"conv_{i}")(g, x)
+            if 1 <= i <= self.num_layers - 2:
+                x = {nt: F.relu(h) for nt, h in x.items()}
+        return {nt: getattr(self, f"lin__{nt}")(x[nt])
+                for nt in self.head_types}
