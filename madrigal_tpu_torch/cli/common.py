@@ -2,17 +2,23 @@
 flags, device setup and data loading.
 
 `--platform` takes `cpu` or `cuda` (default `cuda`); `tpu` raises. The
-TPU layout flags `--kg_chunk` and `--no_src_mxu` still parse and select
-the plain KG layout. `--from_yaml` and `--set` parse too; they override
-a training config, and serving takes its config from the checkpoint.
+TPU layout flag `--kg_chunk` still parses and selects the plain KG
+layout. In training, `--no_src_mxu` drops the source-sorted KG layout, so
+the HGT's source-gather backward is the plain `index_add_` instead of
+kernel K2; serving runs no backward and never builds that layout.
+`--from_yaml` and `--set` override a training config (`apply_overrides`;
+the YAML loader needs pyyaml, `--set` nothing); serving takes its config
+from the checkpoint.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Tuple
+import json
+from typing import Any, Tuple
 
 import torch
 
+from .. import config as config_lib
 from ..data.collate import DDICollator
 from ..data.synthetic import (
     SyntheticDataset,
@@ -52,8 +58,38 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="TPU degree-chunked KG layout; parsed for flag "
                         "compatibility, the plain layout is used")
     p.add_argument("--no_src_mxu", action="store_true",
-                   help="TPU source-sorted KG layout switch; parsed for "
-                        "flag compatibility, no effect")
+                   help="training: drop the source-sorted KG layout, "
+                        "so the HGT's source-gather backward runs as a "
+                        "plain index_add_ instead of the sorted segment-sum "
+                        "kernel K2 (serving never builds the layout)")
+
+
+def _parse_value(v: str):
+    # Python-style bool/None spellings first: json.loads("False") fails,
+    # and the raw string "False" would read as true
+    low = v.strip().lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("none", "null"):
+        return None
+    try:
+        return json.loads(v)
+    except json.JSONDecodeError:
+        return v
+
+
+def apply_overrides(cfg: Any, args: argparse.Namespace) -> Any:
+    """`--from_yaml` first, then every `--set KEY=VALUE` (dotted keys,
+    JSON values), onto a dataclass config."""
+    if args.from_yaml:
+        cfg = config_lib.load_yaml_overrides(cfg, args.from_yaml)
+    overrides = {}
+    for kv in args.set:
+        k, _, v = kv.partition("=")
+        overrides[k] = _parse_value(v)
+    if overrides:
+        cfg = config_lib.override(cfg, overrides)
+    return cfg
 
 
 def setup_platform(args: argparse.Namespace) -> torch.device:
@@ -65,20 +101,30 @@ def setup_platform(args: argparse.Namespace) -> torch.device:
     return resolve_device(args.platform)
 
 
+def reference_scale_kwargs(shrink: int) -> dict:
+    """make_reference_scale_dataset's size arguments for
+    --synthetic_scale_shrink `shrink`: every dimension divided by it."""
+    s = shrink or 1
+    if s > 1:
+        return dict(num_drugs=max(6843 // s, 16), num_labels=max(960 // s, 8),
+                    num_rows=max(174_763 // s, 64), kg_scale=s)
+    return {}
+
+
+def reference_scale_dataset(args: argparse.Namespace) -> SyntheticDataset:
+    """The --synthetic_scale dataset, every dimension divided by
+    --synthetic_scale_shrink."""
+    return make_reference_scale_dataset(
+        seed=args.seed, **reference_scale_kwargs(args.synthetic_scale_shrink))
+
+
 def load_data(args: argparse.Namespace, device: torch.device
               ) -> Tuple[SyntheticDataset, DDICollator]:
+    """The serving dataset and its collator. The KG batch has the plain
+    layout only: the source-sorted one serves the training backward, and
+    its host argsorts would only delay the first score."""
     if args.synthetic_scale:
-        s = args.synthetic_scale_shrink or 1
-        if s > 1:
-            ds = make_reference_scale_dataset(
-                seed=args.seed,
-                num_drugs=max(6843 // s, 16),
-                num_labels=max(960 // s, 8),
-                num_rows=max(174_763 // s, 64),
-                kg_scale=s,
-            )
-        else:
-            ds = make_reference_scale_dataset(seed=args.seed)
+        ds = reference_scale_dataset(args)
     elif args.synthetic or not args.data_dir:
         ds = make_dataset(
             num_drugs=args.synthetic_drugs,

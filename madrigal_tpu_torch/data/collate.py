@@ -6,10 +6,14 @@ indices, train-edge undirecting, fixed or structured negatives, and the
 per-drug modality gathers (molecules, KG row lookup, cv/tx rows). It reads
 the numpy `EdgeTable` of `data/synthetic.py`.
 
-The KG batch is always the plain layout. The JAX collator's static-shape
-budgets (node, edge and pair padding for XLA), its TPU KG layouts and its
-drug-table cache have no counterpart: PyTorch runs each batch at its own
-shape, so every row of a collated batch is real (`mask` is all True).
+The KG batch is the plain layout, with the source-sorted layout of the
+HGT backward added under `kg_src_sort`. `full_drug_table` collates
+against the whole drug table (head/tail indices are then global drug
+ids) and `drug_table_cache` lets collators share their drug batches, as
+in the JAX package. The JAX collator's static-shape budgets (node, edge
+and pair padding for XLA) and its degree-chunked KG layout have no
+counterpart: PyTorch runs each batch at its own shape, so every row of a
+collated batch is real (`mask` is all True).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .batch import DrugModalityBatch
 from .kg import HeteroKGBatch, build_kg_batch, drug_row_lookup
 from .molgraph import pack_molecules
@@ -40,7 +45,8 @@ class DDIBatch:
 
 
 class DDICollator:
-    """Host-side collator over a drug store; tensors land on `device`."""
+    """Host-side collator over a drug store; tensors land on `device`
+    (None: the card)."""
 
     def __init__(
         self,
@@ -49,11 +55,24 @@ class DDICollator:
         num_negative_samples_per_pair: Optional[int] = None,
         negative_sampling_probs_type: str = "uniform",
         seed: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
+        kg_src_sort: bool = False,
+        drug_table_cache: Optional[dict] = None,
+        full_drug_table: bool = False,
     ):
         self.ds = ds
         self.split = split
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.kg_src_sort = kg_src_sort
+        # drug batches keyed by their drug-id set, shared by every
+        # collator given the same dict (one device copy of the tables)
+        self.drug_table_cache = drug_table_cache
+        # collate against the whole [0, N) drug table: head/tail indices
+        # become global drug ids and every batch's head and tail are the
+        # one cached full-table batch
+        self.full_drug_table = full_drug_table
+        if full_drug_table and drug_table_cache is None:
+            self.drug_table_cache = {}
         self.num_neg = num_negative_samples_per_pair
         self.rng = np.random.RandomState(seed)
         self.kg_row_lut = drug_row_lookup(ds.kg_drug_ids, ds.num_drugs)
@@ -82,9 +101,13 @@ class DDICollator:
     def drug_batch(self, drug_ids: np.ndarray) -> DrugModalityBatch:
         ds = self.ds
         drug_ids = np.asarray(drug_ids, np.int64)
+        cache = self.drug_table_cache
+        key = (drug_ids.tobytes(), self.device)
+        if cache is not None and key in cache:
+            return cache[key]
         mols = pack_molecules([ds.molecules[int(i)] for i in drug_ids],
                               device=self.device)
-        return DrugModalityBatch(
+        out = DrugModalityBatch(
             drugs=self._t(drug_ids.astype(np.int32)),
             mols=mols,
             kg_rows=self._t(self.kg_row_lut[drug_ids]),
@@ -97,13 +120,19 @@ class DDICollator:
                 for mod, tab in getattr(ds, "extra_tabular", {}).items()
             },
         )
+        if cache is not None:
+            cache[key] = out
+        return out
 
     def kg_batch(self) -> HeteroKGBatch:
         """The full-KG batch (the reference's default path,
-        data_utils.py:330-332), in the plain layout."""
+        data_utils.py:330-332), in the plain layout, with the
+        source-sorted layout when the collator was built with
+        kg_src_sort."""
         ds = self.ds
         return build_kg_batch(ds.kg_node_feats, ds.kg_edge_indices,
-                              ds.kg_drug_ids, device=self.device)
+                              ds.kg_drug_ids, device=self.device,
+                              src_sort=self.kg_src_sort)
 
     def __call__(
         self, rows: Optional[EdgeTable] = None, build_kg: bool = True,
@@ -122,6 +151,13 @@ class DDICollator:
             neg = np.concatenate(
                 [np.stack([pos[:, 0], nt], 1), np.stack([nh, pos[:, 1]], 1)]
             )
+        elif self.split in ("val_between", "test_between"):
+            # between splits corrupt only the train-side tail, twice
+            # (reference data.py:850-854: neg_tail_1 / neg_tail_2)
+            neg = np.concatenate([
+                np.stack([pos[:, 0], t["neg_tail_1"]], 1),
+                np.stack([pos[:, 0], t["neg_tail_2"]], 1),
+            ])
         else:
             neg = np.concatenate([
                 np.stack([pos[:, 0], t["neg_tail"]], 1),
@@ -142,8 +178,12 @@ class DDICollator:
         pos_neg = np.concatenate(
             [np.ones_like(labels), np.zeros_like(neg_labels)]
         )
-        uniq_heads, head_inv = np.unique(all_heads, return_inverse=True)
-        uniq_tails, tail_inv = np.unique(all_tails, return_inverse=True)
+        if self.full_drug_table:
+            uniq_heads = uniq_tails = np.arange(self.ds.num_drugs)
+            head_inv, tail_inv = all_heads, all_tails
+        else:
+            uniq_heads, head_inv = np.unique(all_heads, return_inverse=True)
+            uniq_tails, tail_inv = np.unique(all_tails, return_inverse=True)
 
         batch = DDIBatch(
             head=self.drug_batch(uniq_heads),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..constants import BOND_DIM, MOL_DIM
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +55,12 @@ def round_up(x: int, multiple: int) -> int:
 
 def pack_molecules(
     graphs: Sequence[dict],
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MolGraphBatch:
     """Pack per-molecule dicts ('node_feats' [n, MOL_DIM], 'edge_index'
     [e, 2], 'edge_feats' [e, BOND_DIM]) into one padded MolGraphBatch on
-    `device`."""
+    `device` (None: the card)."""
+    device = resolve_device(device)
     n_total = sum(int(g["node_feats"].shape[0]) for g in graphs)
     e_total = sum(int(g["edge_index"].shape[0]) for g in graphs)
     n_pad = round_up(max(n_total, 1), PAD_MULTIPLE)

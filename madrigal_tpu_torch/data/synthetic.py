@@ -54,6 +54,17 @@ class EdgeTable:
     def __len__(self) -> int:
         return len(next(iter(self._cols.values()))) if self._cols else 0
 
+    def take(self, rows) -> "EdgeTable":
+        """The rows at the given positions (or boolean mask), in that
+        order: the reference's `df.iloc[rows].reset_index(drop=True)`."""
+        return EdgeTable({k: v[rows] for k, v in self._cols.items()})
+
+    def replace(self, drop=(), **columns) -> "EdgeTable":
+        """A copy without the `drop` columns and with `columns` set."""
+        cols = {k: v for k, v in self._cols.items() if k not in drop}
+        cols.update(columns)
+        return EdgeTable(cols)
+
 
 @dataclasses.dataclass
 class SyntheticDataset:
@@ -130,6 +141,17 @@ PRIMEKG_EDGE_SPEC = [
     ("anatomy", "rev_anat", "disease", 600_000),
     ("disease", "dd", "disease", 300_000),
 ]
+
+
+def reference_scale_kg_sizes(num_drugs: int = 6843, kg_scale: int = 1):
+    """(node count per node type, edge count per edge type) of the KG that
+    make_reference_scale_dataset builds for these arguments."""
+    nodes = {nt: (max(2, int(num_drugs * 0.8)) if nt == "drug"
+                  else max(n // kg_scale, 8))
+             for nt, n in PRIMEKG_NODE_TYPES.items()}
+    edges = {(src, rel, dst): max(e // kg_scale, 16)
+             for src, rel, dst, e in PRIMEKG_EDGE_SPEC}
+    return nodes, edges
 
 
 def _vectorized_ddi_table(num_drugs: int, num_labels: int, num_rows: int,
@@ -233,16 +255,13 @@ def make_reference_scale_dataset(
         rng.rand(NUM_CELL_LINES, num_drugs).astype(np.float32) * 10.0)
     tx_dosages[tx_table.sum(-1) == 0] = 0.0
 
+    node_counts, edge_counts = reference_scale_kg_sizes(num_drugs, kg_scale)
     kg_node_feats = {
-        nt: rng.randn(
-            num_kg_drugs if nt == "drug" else max(n // kg_scale, 8),
-            kg_feat_dim,
-        ).astype(np.float32)
-        for nt, n in PRIMEKG_NODE_TYPES.items()
+        nt: rng.randn(n, kg_feat_dim).astype(np.float32)
+        for nt, n in node_counts.items()
     }
     kg_edge_indices = {}
-    for src, rel, dst, e in PRIMEKG_EDGE_SPEC:
-        e = max(e // kg_scale, 16)
+    for (src, rel, dst), e in edge_counts.items():
         kg_edge_indices[(src, rel, dst)] = np.stack([
             rng.randint(0, kg_node_feats[src].shape[0], e),
             rng.randint(0, kg_node_feats[dst].shape[0], e),
@@ -385,3 +404,71 @@ def make_dataset(
         edge_df=edge_df,
         extra_tabular=extra_tabular,
     )
+
+
+def make_split_dataset(
+    num_drugs: int = 32,
+    num_labels: int = 12,
+    num_edges: int = 160,
+    split_method: str = "split_by_triplets",
+    val_frac: float = 0.15,
+    test_frac: float = 0.15,
+    seed: int = 0,
+):
+    """Dataset + split edge tables mirroring the reference's split families
+    (reference: madrigal/data/data.py:556-612 split semantics):
+
+    * split_by_triplets / split_by_pairs: random row split; every split has
+      neg_head/neg_tail columns.
+    * split_by_drugs_*: drugs partition into train/eval sets; 'between'
+      edges (eval-head -> train-tail) carry neg_tail_1/neg_tail_2 fixed
+      negatives (data.py:584-589); 'within' edges connect eval drugs.
+
+    Returns (SyntheticDataset-with-train-edges, {split_name: EdgeTable}),
+    equal for the same seed to the JAX package's DataFrames.
+    """
+    rng = np.random.RandomState(seed)
+    ds = make_dataset(num_drugs, num_labels, num_edges * 2, seed=seed)
+    df = ds.edge_df
+
+    if split_method in ("split_by_triplets", "split_by_pairs"):
+        perm = rng.permutation(len(df))
+        n_val = int(len(df) * val_frac)
+        n_test = int(len(df) * test_frac)
+        splits = {"train": df.take(perm[n_val + n_test:]),
+                  "val": df.take(perm[:n_val]),
+                  "test": df.take(perm[n_val:n_val + n_test])}
+    elif split_method.startswith("split_by_drugs"):
+        drugs = rng.permutation(num_drugs)
+        n_eval = max(2, int(num_drugs * (val_frac + test_frac)))
+        eval_drugs = set(drugs[:n_eval].tolist())
+        half = len(eval_drugs) // 2
+        val_drugs = set(list(eval_drugs)[:half])
+
+        def classify(h, t):
+            h_in, t_in = h in eval_drugs, t in eval_drugs
+            if not h_in and not t_in:
+                return "train"
+            which = "val" if (h in val_drugs or t in val_drugs) else "test"
+            return f"{which}_within" if h_in and t_in else f"{which}_between"
+
+        names = np.asarray([classify(int(h), int(t))
+                            for h, t in zip(df["head"], df["tail"])])
+        splits = {}
+        for name in sorted(set(names.tolist())):  # groupby order
+            sub = df.take(names == name)
+            if name.endswith("_between"):
+                # between-split fixed negatives corrupt only the train-side
+                # tail (data.py:584-589)
+                train_side = sorted(set(range(num_drugs)) - eval_drugs)
+                sub = sub.replace(
+                    drop=("neg_head", "neg_tail"),
+                    neg_tail_1=rng.choice(train_side, len(sub)),
+                    neg_tail_2=rng.choice(train_side, len(sub)))
+            splits[name] = sub
+        splits.setdefault("train", df.take(names == "train"))
+    else:
+        raise ValueError(split_method)
+
+    ds.edge_df = splits["train"]
+    return ds, splits

@@ -15,7 +15,9 @@ per-relation `k_rel__*` / `v_rel__*` [H, D, D], `p_rel__*` [H] and
 `skip__*` [1], attention q/k/v/out projections (heads stay the
 contiguous D-wide feature blocks of the JAX layout), learned tokens, and
 the decoder's unsymmetrized `weight` [L, D, D]. LayerNorm eps is 1e-5 in
-both packages and BatchNorm runs on the running statistics.
+both packages. A JAX `FinetuneTrainer`'s `params` and `batch_stats` load
+into the port's `MadrigalMultilabel` the same way, for eval or train
+mode (`models/norm.py` keeps each BatchNorm's train-mode rule).
 """
 from __future__ import annotations
 
@@ -55,19 +57,23 @@ def flax_to_state_dict(variables: Mapping, prefix: str = ""
         collection, *names = path
         if collection not in ("params", "batch_stats"):
             raise ValueError(f"unknown collection {collection!r}")
-        leaf = names[-1]
-        if leaf == "kernel":
+        if names[-1] == "kernel":
             if value.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: Dense kernel of "
                                  f"rank {value.ndim}")
             value = value.T
-            leaf = "weight"
-        else:
-            leaf = _LEAF.get(leaf, leaf)
-        key = prefix + ".".join(names[:-1] + [leaf])
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value,
-                                                        dtype=np.float32))
+        sd[prefix + torch_key(names)] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order="C"))
     return sd
+
+
+def torch_key(names) -> str:
+    """The port's state_dict key of a flax variable path (collection
+    dropped), e.g. ('encoder', 'cv_encoder', 'dense_0', 'kernel') ->
+    'encoder.cv_encoder.dense_0.weight'."""
+    leaf = "weight" if names[-1] == "kernel" else _LEAF.get(names[-1],
+                                                            names[-1])
+    return ".".join(list(names[:-1]) + [leaf])
 
 
 def load_flax_weights(module: torch.nn.Module, variables: Mapping,

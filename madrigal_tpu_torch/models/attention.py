@@ -6,6 +6,13 @@ Plain matmul + softmax: the fusion sequence is ~21 tokens, and the JAX
 package has no attention kernel either. Masked logits are set to -1e9, so
 a fully masked row gets uniform weights instead of NaN, as in the JAX
 package.
+
+With `remat`, each layer whose weights are not returned is recomputed in
+the backward (`torch.utils.checkpoint`), under the JAX package's policies:
+None recomputes everything, 'dots' keeps the outputs of the Linear layers
+(the matmuls without batch dimensions, `mm` / `addmm`) and recomputes the
+attention products, softmax and elementwise work, 'all' keeps everything
+(no recompute inside the layer).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .mlp import activation
+from .remat import remat
 
 NEG_INF = -1e9
 
@@ -109,13 +117,20 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers (`layer_0`, ...); the last layer can return
-    its attention weights."""
+    its attention weights. `remat` / `remat_policy`: see the module
+    docstring."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int, dropout: float = 0.1,
-                 actn: str = "relu", norm_first: bool = False):
+                 actn: str = "relu", norm_first: bool = False,
+                 remat: bool = False, remat_policy: str | None = None):
         super().__init__()
+        if remat_policy not in (None, "dots", "all"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                             "(None | 'dots' | 'all')")
         self.num_layers = num_layers
+        self.remat = remat and remat_policy != "all"
+        self.remat_policy = remat_policy
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward, dropout, actn, norm_first))
@@ -124,8 +139,12 @@ class TransformerEncoder(nn.Module):
                 return_last_attn: bool = False):
         last = None
         for i in range(self.num_layers):
+            layer = getattr(self, f"layer_{i}")
             want = return_last_attn and i == self.num_layers - 1
-            out = getattr(self, f"layer_{i}")(x, key_padding_mask, attn_mask,
-                                              return_weights=want)
+            if self.remat and not want:
+                x = remat(layer, x, key_padding_mask, attn_mask,
+                          policy=self.remat_policy)
+                continue
+            out = layer(x, key_padding_mask, attn_mask, return_weights=want)
             x, last = out if want else (out, last)
         return (x, last) if return_last_attn else x

@@ -7,7 +7,10 @@ triu(W, 1)^T per outcome (no bias).
   * `all_pairs`: the [L, N_head, N_tail] block through kernel K1
     (`ops/bilinear.py`): the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors; f32 compute and output.
-  * `triples`: only the (label, head, tail) entries asked for.
+  * `triples`: only the (label, head, tail) entries asked for, one
+    gathered [D, D] weight per triple, or with the label-chunked layout
+    of training (`train/finetune.label_chunk_view`) one per chunk of
+    `label_chunk` triples that share a label.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ class BilinearDDIScorer(nn.Module):
 
     # triples scored per step: bounds the gathered [C, D, D] weights
     TRIPLE_CHUNK = 8192
+    # label-chunked layout: [D, D] weight slices gathered per step (64 MB
+    # at D = 128 in f32), whatever label_chunk is
+    SCAN_WEIGHT_ROWS = 1024
 
     def __init__(self, num_labels: int, input_dim1: int, input_dim2: int):
         super().__init__()
@@ -53,10 +59,30 @@ class BilinearDDIScorer(nn.Module):
                                compute_dtype=torch.float32)
 
     def triples(self, z_head: torch.Tensor, z_tail: torch.Tensor,
-                labels: torch.Tensor) -> torch.Tensor:
+                labels: torch.Tensor,
+                chunk_labels: Optional[torch.Tensor] = None,
+                label_chunk: int = 0) -> torch.Tensor:
         """Scores for aligned (head, tail, label) triples: z_head/z_tail
-        [T, D], labels [T] -> [T]."""
+        [T, D], labels [T] -> [T].
+
+        With chunk_labels [T / label_chunk], triple i's label is
+        chunk_labels[i // label_chunk], and each [D, D] slice is gathered
+        once per chunk (decoder.py:102-140 of the JAX package; a loop over
+        bounded steps takes the place of its scan)."""
         w_sym = self.w_sym()
+        if chunk_labels is not None:
+            c = label_chunk
+            T, D = z_head.shape
+            if c <= 0 or T % c:
+                raise ValueError(f"{T} triples are not whole chunks of {c}")
+            zh3 = z_head.reshape(-1, c, D)
+            zt3 = z_tail.reshape(-1, c, D)
+            step = self.SCAN_WEIGHT_ROWS
+            out = [torch.einsum("tcd,tde,tce->tc", zh3[s:s + step],
+                                w_sym[chunk_labels[s:s + step].long()],
+                                zt3[s:s + step])
+                   for s in range(0, zh3.shape[0], step)]
+            return torch.cat(out).reshape(-1) if out else z_head.new_zeros(0)
         out = []
         for s in range(0, z_head.shape[0], self.TRIPLE_CHUNK):
             e = s + self.TRIPLE_CHUNK

@@ -25,6 +25,7 @@ from ..config import EncoderConfig
 from ..constants import NUM_CELL_LINES
 from ..data.batch import DrugModalityBatch
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
+from ..device import resolve_device
 from .chemcpa import ChemCPAEncoder
 from .decoder import BilinearDDIScorer
 from .fusion import PositionEncoding, TransformerFusion, build_bottleneck_masks
@@ -251,11 +252,16 @@ class MadrigalMultilabel(nn.Module):
         return self.decoder.all_pairs(z_head, z_tail, label_range)
 
     def score_triples(self, head, tail, kg, head_idx, tail_idx, labels,
-                      kg_drug_table=None):
-        """Embeds unique heads/tails once and scores only the triples."""
+                      kg_drug_table=None, chunk_labels=None,
+                      label_chunk: int = 0):
+        """Embeds unique heads/tails once and scores only the triples.
+        kg_drug_table skips the KG pass (the trainer computes it once per
+        step); chunk_labels/label_chunk select the label-chunked layout
+        (decoder.triples)."""
         z_head, z_tail = self.embed_pair(head, tail, kg, kg_drug_table)
         return self.decoder.triples(z_head[head_idx.long()],
-                                    z_tail[tail_idx.long()], labels)
+                                    z_tail[tail_idx.long()], labels,
+                                    chunk_labels, label_chunk)
 
 
 def kg_schema_from_state_dict(state_dict: Dict[str, torch.Tensor]):
@@ -306,8 +312,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build_model(model_cfg, kg_node_dims, kg_edge_types,
-                device: torch.device | str = "cpu") -> MadrigalMultilabel:
-    """MadrigalMultilabel from a ModelConfig, in eval mode on `device`."""
+                device: torch.device | str | None = None
+                ) -> MadrigalMultilabel:
+    """MadrigalMultilabel from a ModelConfig, in eval mode on `device`
+    (None: the card)."""
+    device = resolve_device(device)
     model = MadrigalMultilabel(
         model_cfg.encoder, model_cfg.prediction_dim, kg_node_dims,
         kg_edge_types, decoder_normalize=model_cfg.decoder_normalize,

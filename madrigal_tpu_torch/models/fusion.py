@@ -1,6 +1,13 @@
 """Missing-modality-masked transformer fusion and positional encodings
 (port of `madrigal_tpu/models/fusion.py`; reference models.py:352-455,
-551-603)."""
+551-603).
+
+With `cfg.remat` the whole fusion call is recomputed in the backward, so
+only its embed-width inputs are kept between the forward and the backward
+(as the JAX encoder wraps `TransformerFusion` in `nn.remat`), and inside
+that recompute each transformer layer is rematerialized under
+`cfg.remat_policy` (`models/attention.py`).
+"""
 from __future__ import annotations
 
 import math
@@ -13,6 +20,7 @@ from torch import nn
 from ..config import FusionConfig
 from ..ops.segment import masked_max_pool, masked_mean_pool
 from .attention import MultiheadAttention, TransformerEncoder
+from .remat import remat
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -69,7 +77,8 @@ class TransformerFusion(nn.Module):
         self.embed2latent = nn.Linear(embed_dim, latent)
         self.transformer_encoder = TransformerEncoder(
             cfg.num_layers, latent, cfg.att_heads, cfg.ffn_dim, cfg.dropout,
-            cfg.actn, cfg.norm_first)
+            cfg.actn, cfg.norm_first, remat=cfg.remat,
+            remat_policy=cfg.remat_policy)
         if cfg.agg == "x-attn":
             self.x_attn_query = nn.Parameter(torch.empty(1, latent))
             self.x_attn_kv_norm = nn.LayerNorm(latent, eps=1e-5)
@@ -86,6 +95,14 @@ class TransformerFusion(nn.Module):
 
     def forward(self, fusion_sequence, fusion_mask, src_mask=None,
                 return_last_attn: bool = False):
+        if self.cfg.remat and not return_last_attn:
+            return remat(self._forward, fusion_sequence, fusion_mask,
+                         src_mask)
+        return self._forward(fusion_sequence, fusion_mask, src_mask,
+                             return_last_attn)
+
+    def _forward(self, fusion_sequence, fusion_mask, src_mask=None,
+                 return_last_attn: bool = False):
         cfg = self.cfg
         B = fusion_sequence.shape[0]
         h = self.embed2latent(fusion_sequence)

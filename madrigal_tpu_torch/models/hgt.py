@@ -15,8 +15,13 @@ Per layer:
 
 This is the plain per-head math. The JAX package's block-diagonal
 relation matmul and indicator-matmul head logits are TPU lane-layout
-forms of the same sums (hgt.py:70-121), and its source-sorted backward
-layouts only matter for training.
+forms of the same sums (hgt.py:70-121). As there, k' and v' are gathered
+by edge source once, from the fused [N_src, 2F] table, and when the KG
+batch carries the source-sorted layout that gather's backward is kernel
+K2 (`ops/gather.py`). With `remat_edge_types` (per_edge_type scope only,
+as in the JAX package) each edge type's messages are recomputed in the
+backward, so only its [N_dst, F] aggregate is kept, not its [E, ...]
+edge buffers.
 """
 from __future__ import annotations
 
@@ -29,7 +34,24 @@ from torch import nn
 
 from ..config import HGTConfig
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
+from ..ops.gather import gather_rows_sorted
 from ..ops.segment import segment_softmax, segment_sum
+from .remat import remat
+
+
+def _src_gather(table: torch.Tensor, g: HeteroKGBatch, ek: str,
+                src_sorted_bwd: bool) -> torch.Tensor:
+    """`table[src]` for edge type `ek` (port of hgt.py:47-67). Its backward
+    is the sorted segment sum K2 when the batch carries the source-sorted
+    layout and src_sorted_bwd is on (on the card K2 raises on a table it
+    cannot take; it takes every float32, bfloat16 and float16 width, where
+    the JAX package gates the Pallas kernel on the TPU's 128 lanes).
+    Otherwise the plain gather, whose backward is `index_add_`."""
+    order = g.edge_src_order.get(ek)
+    if src_sorted_bwd and order is not None:
+        return gather_rows_sorted(table, g.edge_src[ek], order,
+                                  g.edge_src_starts[ek])
+    return table[g.edge_src[ek].long()]
 
 
 def _relation_transform(x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
@@ -42,8 +64,11 @@ def _relation_transform(x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
 class HGTConv(nn.Module):
     def __init__(self, in_dims: Dict[str, int], edge_types: Sequence[EdgeType],
                  out_channels: int, heads: int, group: str = "sum",
-                 softmax_scope: str = "per_edge_type"):
+                 softmax_scope: str = "per_edge_type",
+                 src_sorted_bwd: bool = True, remat_edge_types: bool = False):
         super().__init__()
+        self.src_sorted_bwd = src_sorted_bwd
+        self.remat_edge_types = remat_edge_types
         F_ = out_channels
         if F_ % heads:
             raise ValueError(f"out_channels {F_} not divisible by {heads}")
@@ -85,15 +110,18 @@ class HGTConv(nn.Module):
         """One edge type's per-edge logits [E, H] and values [E, F]."""
         src_t, _, dst_t = et
         ek = edge_key(et)
-        src = g.edge_src[ek].long()
         dst = g.edge_dst[ek].long()
         k_s = _relation_transform(k[src_t], getattr(self, f"k_rel__{ek}"))
         v_s = _relation_transform(v[src_t], getattr(self, f"v_rel__{ek}"))
-        prod = q[dst_t][dst] * k_s[src]  # [E, F]
+        # one gather of the fused k|v table (a gather of a concatenation
+        # is the concatenation of the gathers)
+        kv = _src_gather(torch.cat([k_s, v_s], dim=-1), g, ek,
+                         self.src_sorted_bwd)  # [E, 2F]
+        prod = q[dst_t][dst] * kv[:, :self.F]  # [E, F]
         logits = (prod.reshape(-1, self.H, self.D).sum(-1)
                   * getattr(self, f"p_rel__{ek}")[None, :]
                   / math.sqrt(self.D))
-        return logits, v_s[src]
+        return logits, kv[:, self.F:]
 
     def _aggregate(self, logits, vals, dst, mask, n_dst):
         alpha = segment_softmax(logits, dst, n_dst, mask=mask)  # [E, H]
@@ -110,20 +138,28 @@ class HGTConv(nn.Module):
         agg: Dict[str, list] = {nt: [] for nt in self.node_types}
         pending: Dict[str, list] = {nt: [] for nt in self.node_types}
         for et in self.edge_types:
-            dst_t = et[2]
+            src_t, _, dst_t = et
             ek = edge_key(et)
             mask = g.edge_mask[ek]
             n_dst = g.num_nodes(dst_t)
             dst_safe = torch.where(mask, g.edge_dst[ek].long(),
                                    torch.full_like(g.edge_dst[ek].long(),
                                                    n_dst))
-            logits, vals = self._edge_logits_values(g, et, q_dict, k_dict,
-                                                    v_dict)
             if self.softmax_scope == "global":
+                logits, vals = self._edge_logits_values(g, et, q_dict,
+                                                        k_dict, v_dict)
                 pending[dst_t].append((logits, vals, dst_safe, mask))
-            else:
-                agg[dst_t].append(
-                    self._aggregate(logits, vals, dst_safe, mask, n_dst))
+                continue
+
+            def messages(q, k, v, et=et, dst_safe=dst_safe, mask=mask,
+                         n_dst=n_dst):
+                logits, vals = self._edge_logits_values(
+                    g, et, {et[2]: q}, {et[0]: k}, {et[0]: v})
+                return self._aggregate(logits, vals, dst_safe, mask, n_dst)
+
+            args = (q_dict[dst_t], k_dict[src_t], v_dict[src_t])
+            agg[dst_t].append(remat(messages, *args)
+                              if self.remat_edge_types else messages(*args))
 
         if self.softmax_scope == "global":
             # one softmax over the concatenation of every edge type's
@@ -177,7 +213,9 @@ class HGTEncoder(nn.Module):
         dims = dict(node_dims)
         for i in range(cfg.num_layers):
             conv = HGTConv(dims, edge_types, cfg.hidden_dim, cfg.att_heads,
-                           group=cfg.group, softmax_scope=cfg.softmax_scope)
+                           group=cfg.group, softmax_scope=cfg.softmax_scope,
+                           src_sorted_bwd=cfg.src_sorted_bwd,
+                           remat_edge_types=cfg.remat_edge_types)
             self.add_module(f"conv_{i}", conv)
             dims = conv.out_dims
         self.head_types = (("drug",) if drug_only_head

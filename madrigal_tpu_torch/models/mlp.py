@@ -5,7 +5,9 @@
     "half-ReLU" last-layer quirk.
 
 Submodule names follow the flax modules (`dense_0`, `norm_0`, `bn_0`) so
-that `interop/from_flax.py` maps parameters by path.
+that `interop/from_flax.py` maps parameters by path. Their BatchNorms
+follow flax `nn.BatchNorm` in train mode (every row counts, biased
+running variance; `models/norm.py`).
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ class MLPEncoder(nn.Module):
             self.add_module(f"dense_{i}", nn.Linear(dims[i], dims[i + 1]))
         for i in range(len(hidden_dims) - 1):
             if norm == "bn":
-                self.add_module(f"norm_{i}", MaskedBatchNorm(hidden_dims[i]))
+                self.add_module(f"norm_{i}", MaskedBatchNorm(
+                    hidden_dims[i], flax_rule=True))
             elif norm == "ln":
                 self.add_module(f"norm_{i}",
                                 nn.LayerNorm(hidden_dims[i], eps=1e-5))
@@ -94,7 +97,8 @@ class ChemCPAMLP(nn.Module):
         for i in range(self.n):
             self.add_module(f"dense_{i}", nn.Linear(sizes[i], sizes[i + 1]))
             if i < self.n - 1 and batch_norm:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(sizes[i + 1]))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(
+                    sizes[i + 1], flax_rule=True))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x

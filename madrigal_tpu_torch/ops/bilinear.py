@@ -10,28 +10,18 @@ its plain form).
 `bilinear_scores` launches the hand-written CUDA kernel
 (`csrc/bilinear.cu`) for CUDA tensors and runs `bilinear_scores_plain`
 for CPU tensors; there is no fallback between the two. The kernel is
-built with nvcc for sm_90a at first use into `build/kernels/` at the
-root of the checkout and loaded with ctypes.
+built at first use by `ops/_build.py` (nvcc for sm_90a into
+`build/kernels/`, loaded with ctypes).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-D = 128
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bilinear.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import _build
 
-_lib = None  # the loaded shared library, once built
+D = 128
 
 
 def bilinear_scores_plain(z_head: torch.Tensor, z_tail: torch.Tensor,
@@ -51,59 +41,10 @@ def bilinear_scores_plain(z_head: torch.Tensor, z_tail: torch.Tensor,
     return torch.matmul(zw, zt.T).to(out_dtype)
 
 
-def nvcc_path() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME)")
-    return nvcc
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile `csrc/bilinear.cu` into a shared library named after its
-    content hash (a rebuild happens only when the source changes) and
-    return its path. With verbose, nvcc's -Xptxas -v report is printed."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libmadrigal_bilinear_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(_SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    if verbose:
-        print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-        print(res.stderr.strip())
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.madrigal_bilinear_scores.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-        lib.madrigal_bilinear_scores.restype = ci
-        _lib = lib
-    return _lib
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+def _library():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _build.load("bilinear", "madrigal_bilinear_scores",
+                       [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
 
 
 def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
@@ -133,9 +74,9 @@ def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
     zh = z_head.to(compute_dtype)
     zt = z_tail.to(compute_dtype)
     w = w_sym.to(compute_dtype)
-    _check("z_head", zh, (M, D), dev)
-    _check("z_tail", zt, (N, D), dev)
-    _check("w_sym", w, (L, D, D), dev)
+    _build.check_operand("z_head", zh, (M, D), dev)
+    _build.check_operand("z_tail", zt, (N, D), dev)
+    _build.check_operand("w_sym", w, (L, D, D), dev)
     out = torch.empty((L, M, N), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -67,8 +67,12 @@ def test_make_dataset_equal(seed):
 def test_reference_scale_dataset_equal():
     kw = dict(num_drugs=48, num_labels=8, num_rows=150, seed=3,
               kg_scale=400)
-    assert_same_dataset(j_syn.make_reference_scale_dataset(**kw),
-                        t_syn.make_reference_scale_dataset(**kw))
+    ds = t_syn.make_reference_scale_dataset(**kw)
+    assert_same_dataset(j_syn.make_reference_scale_dataset(**kw), ds)
+    # the sizes the smoke run checks kernel K2 at are the dataset's
+    nodes, edges = t_syn.reference_scale_kg_sizes(48, 400)
+    assert nodes == {nt: f.shape[0] for nt, f in ds.kg_node_feats.items()}
+    assert edges == {et: e.shape[1] for et, e in ds.kg_edge_indices.items()}
 
 
 def test_negative_sampling_equal():
@@ -94,7 +98,7 @@ def test_drug_and_kg_batches_equal(datasets):
     dj, dt = datasets
     cj = j_collate.DDICollator(dj, split="train", kg_edge_chunk=0,
                                kg_src_sort=False)
-    ct = t_collate.DDICollator(dt, split="train")
+    ct = t_collate.DDICollator(dt, split="train", device="cpu")
     ids = np.array([3, 0, 17, 5, 5, 11])
     assert_same(cj.drug_batch(ids), ct.drug_batch(ids), "drug_batch")
     kj, kt = cj.kg_batch(), ct.kg_batch()
@@ -112,7 +116,52 @@ def test_collated_batch_equal(datasets, split, num_neg):
     cj = j_collate.DDICollator(dj, split=split, seed=4,
                                num_negative_samples_per_pair=num_neg)
     ct = t_collate.DDICollator(dt, split=split, seed=4,
-                               num_negative_samples_per_pair=num_neg)
+                               num_negative_samples_per_pair=num_neg,
+                               device="cpu")
     (bj, _), (bt, kg) = cj(build_kg=False), ct(build_kg=False)
     assert kg is None
     assert_same(bj, bt, "DDIBatch")
+
+
+@pytest.mark.parametrize("method", ["split_by_triplets",
+                                    "split_by_drugs_random"])
+def test_make_split_dataset_equal(method):
+    kw = dict(num_drugs=20, num_labels=5, num_edges=40, split_method=method,
+              seed=6)
+    (dj, sj), (dt, st) = (j_syn.make_split_dataset(**kw),
+                          t_syn.make_split_dataset(**kw))
+    assert list(sj) == list(st)
+    for name in st:
+        assert list(sj[name].columns) == st[name].columns, name
+        for col in st[name].columns:
+            np.testing.assert_array_equal(sj[name][col].values,
+                                          st[name][col], err_msg=name + col)
+    assert_same_dataset(dj, dt)
+
+
+def test_train_collator_full_table_src_sort_and_between_equal():
+    """The training collator's options (the full drug table, the shared
+    drug-batch cache, the source-sorted KG layout) and the between-split
+    negatives give the JAX package's batches."""
+    kw = dict(num_drugs=20, num_labels=5, num_edges=40,
+              split_method="split_by_drugs_random", seed=6)
+    (dj, sj), (dt, st) = (j_syn.make_split_dataset(**kw),
+                          t_syn.make_split_dataset(**kw))
+    cj = j_collate.DDICollator(dj, split="train", seed=2, kg_edge_chunk=0,
+                               kg_src_sort=True, full_drug_table=True)
+    ct = t_collate.DDICollator(dt, split="train", seed=2, device="cpu",
+                               kg_src_sort=True, full_drug_table=True)
+    (bj, kj), (bt, kt) = cj(), ct()
+    assert_same(bj, bt, "DDIBatch")
+    assert bt.head is bt.tail  # one cached full-table drug batch
+    for name in ("edge_src_order", "edge_src_starts", "edge_src",
+                 "edge_mask"):
+        assert_same(getattr(kj, name), getattr(kt, name), name)
+    between = [n for n in st if n.endswith("_between")]
+    assert between
+    for name in between:
+        bj = j_collate.DDICollator(dj, split=name, seed=2)(
+            sj[name], build_kg=False)[0]
+        bt = t_collate.DDICollator(dt, split=name, seed=2, device="cpu")(
+            st[name], build_kg=False)[0]
+        assert_same(bj, bt, name)

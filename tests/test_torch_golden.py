@@ -40,7 +40,7 @@ def test_torch_port_reproduces_golden():
         pos_emb_type="sinusoidal", pos_emb_dropout=0.0,
     )
     ds = make_dataset(num_drugs=12, num_labels=4, num_edges=16, seed=99)
-    batch, kg = DDICollator(ds, split="train")()
+    batch, kg = DDICollator(ds, split="train", device="cpu")()
     model = MadrigalMultilabel(enc, 4, *kg_schema(ds.kg_node_feats,
                                                   ds.kg_edge_indices))
     data = np.load(GOLDEN)

@@ -124,7 +124,7 @@ def datasets():
     dj, dt = j_syn.make_dataset(**kw), t_syn.make_dataset(**kw)
     cj = j_collate.DDICollator(dj, split="train", kg_edge_chunk=0,
                                kg_src_sort=False)
-    ct = t_collate.DDICollator(dt, split="train")
+    ct = t_collate.DDICollator(dt, split="train", device="cpu")
     return dj, dt, cj, ct
 
 

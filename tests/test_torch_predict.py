@@ -32,7 +32,8 @@ from madrigal_tpu_torch import config as t_config
 from madrigal_tpu_torch.cli import predict as t_cli
 from madrigal_tpu_torch.data import collate as t_collate
 from madrigal_tpu_torch.data import synthetic as t_syn
-from madrigal_tpu_torch.data.kg import kg_schema
+from madrigal_tpu_torch.data.kg import build_kg_batch, kg_schema
+from madrigal_tpu_torch.data.molgraph import pack_molecules
 from madrigal_tpu_torch.device import resolve_device
 from madrigal_tpu_torch.eval import predict as t_predict
 from madrigal_tpu_torch.interop.from_flax import load_flax_weights
@@ -77,7 +78,8 @@ def served(tmp_path_factory):
     dj, dt = j_syn.make_dataset(**DATA), t_syn.make_dataset(**DATA)
     cj = j_collate.DDICollator(dj, split="train", kg_edge_chunk=0,
                                kg_src_sort=False)
-    ct = t_collate.DDICollator(dt, split="train", seed=5)
+    ct = t_collate.DDICollator(dt, split="train", seed=5,
+                               device="cpu")
     batch, kj = cj()
     j_model = JMultilabel(enc_cfg=flagship_shaped(j_config).model.encoder,
                           prediction_dim=6)
@@ -194,6 +196,22 @@ def test_cli_end_to_end_on_cpu(served, tmp_path):
                                atol=1e-5, rtol=1e-5)
 
 
+def test_only_training_builds_the_source_sorted_layout():
+    """The serving CLI's KG batch has the plain layout only (it runs no
+    backward); the training CLI's has the source-sorted one unless
+    --no_src_mxu."""
+    from madrigal_tpu_torch.cli import common
+    from madrigal_tpu_torch.cli import train_ddi
+
+    flags = ["--platform", "cpu"] + DATA_FLAGS
+    serve = t_cli.build_parser().parse_args(["--checkpoint", "x"] + flags)
+    assert not common.load_data(serve, "cpu")[1].kg_batch().edge_src_order
+    for extra, want in (([], True), (["--no_src_mxu"], False)):
+        args = train_ddi.build_parser().parse_args(flags + extra)
+        kg = train_ddi._load_train_data(args, "cpu")[1].kg_batch()
+        assert bool(kg.edge_src_order) == want
+
+
 @pytest.mark.parametrize("extra", [
     ["--export_ranks", "r.npy"], ["--eval_type", "full_full"],
     ["--ablation", "a.json"], ["--sharded"], ["CKPT2"],
@@ -219,6 +237,17 @@ def test_entry_points_refuse_without_card(served):
         t_predict.model_from_checkpoint(served["path"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_cli.main(["--checkpoint", served["path"]] + DATA_FLAGS)
+    # the builders default to the card too
+    ds = served["ct"].ds
+    for build in (lambda: t_collate.DDICollator(ds),
+                  lambda: build_kg_batch(ds.kg_node_feats,
+                                         ds.kg_edge_indices, ds.kg_drug_ids),
+                  lambda: pack_molecules(ds.molecules[:2]),
+                  lambda: build_model(flagship_shaped(t_config).model,
+                                      *kg_schema(ds.kg_node_feats,
+                                                 ds.kg_edge_indices))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
 
 
 _IMPORT_CHECK = """
@@ -231,7 +260,8 @@ import chip_smoke
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml",
           "sklearn", "madrigal_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(len([m for m in sys.modules if m.startswith("madrigal_tpu_torch.")]))
+print(" ".join(sorted(m for m in sys.modules
+                      if m.startswith("madrigal_tpu_torch."))))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 """
 
@@ -240,7 +270,12 @@ def test_port_imports_no_jax_pandas_or_reference_package():
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25  # every module was imported
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 35  # every module was imported
+    for m in ("cli.predict", "cli.train_ddi", "train.finetune",
+              "train.optim", "train.losses", "train.masking",
+              "train.checkpoint", "ops.segment_sorted", "ops.gather"):
+        assert "madrigal_tpu_torch." + m in loaded, m
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
