@@ -48,6 +48,12 @@ instead runs 2 epochs of the training run under each choice of memory
 flags (MEMORY_CHOICES), each in a process of its own, and prints one
 line per choice with its epoch times and peak device memory, or its
 out-of-memory error. It prints no ok line.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 only (device, build with nvcc's -Xptxas -v report, and
+the kernel checks and timings) and prints their lines, with no
+`{"kernels": [...]}` line and no ok line: the quick loop for kernel work.
 """
 from __future__ import annotations
 
@@ -251,6 +257,13 @@ def phase_kernels():
     f32, bf16 = torch.float32, torch.bfloat16
     checks = [k1_check(5, 300, 1000, c, o, seed=1)
               for c in (f32, bf16) for o in (f32, bf16)]
+    # the f32 path's 128x128 tiles: ragged edges past one and two tiles,
+    # one row against the serving width (N % 4 != 0: one-value stores),
+    # and whole tiles with N % 4 == 0 (16-byte stores)
+    checks += [k1_check(L, M, N, f32, o, seed=5)
+               for L, M, N in ((3, 129, 257), (1, 1, NUM_DRUGS),
+                               (2, 256, 1024))
+               for o in (f32, bf16)]
     # the shape score_all_pairs gives K1 in the serving phase, and the
     # all-pairs export at one 64-outcome chunk
     checks.append(k1_check(LABEL_CHUNK, SERVE_HEADS, NUM_DRUGS, f32, f32,
@@ -687,6 +700,18 @@ def phase_train_memory() -> None:
         print(lines[-1], flush=True)
 
 
+def phase_build() -> None:
+    """Both kernels from their sources, the two nvcc processes started
+    together; nvcc's -Xptxas -v report goes to standard output."""
+    seconds = {}
+    libs = _build.build(["bilinear", "segment_sum"], verbose=True,
+                        seconds=seconds)
+    for kernel, src in (("bilinear_scores", "bilinear"),
+                        ("sorted_segment_sum", "segment_sum")):
+        emit({"phase": "build", "kernel": kernel, "library": libs[src].name,
+              "seconds": seconds[src]})
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA GPU: "
@@ -709,18 +734,16 @@ def main(argv) -> int:
         phase_train_memory()
         print(gpu_line(), flush=True)
         return 0
-    if argv:
+    if argv not in ([], ["--kernels"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "or --train_memory")
+                 "--kernels or --train_memory")
 
-    seconds = {}
-    libs = _build.build(["bilinear", "segment_sum"], verbose=True,
-                        seconds=seconds)
-    for kernel, src in (("bilinear_scores", "bilinear"),
-                        ("sorted_segment_sum", "segment_sum")):
-        emit({"phase": "build", "kernel": kernel, "library": libs[src].name,
-              "seconds": seconds[src]})
-
+    phase_build()
+    if argv == ["--kernels"]:
+        phase_kernels()
+        phase_k2_kernels()
+        print(gpu_line(), flush=True)
+        return 0
     k1_checks = phase_kernels()
     k2_checks = phase_k2_kernels()
     phase_small()

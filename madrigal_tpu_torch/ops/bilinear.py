@@ -11,7 +11,9 @@ its plain form).
 (`csrc/bilinear.cu`) for CUDA tensors and runs `bilinear_scores_plain`
 for CPU tensors; there is no fallback between the two. The kernel is
 built at first use by `ops/_build.py` (nvcc for sm_90a into
-`build/kernels/`, loaded with ctypes).
+`build/kernels/`, loaded with ctypes). With f32 compute it runs as two
+CUDA kernels, z_head @ W_l into an f32 scratch [L, M, 128] and then the
+scores; with bf16 compute as one.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def bilinear_scores_plain(z_head: torch.Tensor, z_tail: torch.Tensor,
 def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("bilinear", "madrigal_bilinear_scores",
-                       [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
+                       [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
 
 
 def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
@@ -58,7 +60,9 @@ def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
     CPU tensors run `bilinear_scores_plain`. CUDA tensors launch the
     kernel on the current stream (inputs are first cast to
     `compute_dtype`); anything the kernel does not take raises.
-    `bilinear_scores.launches` counts kernel launches."""
+    `bilinear_scores.launches` counts K1 calls: one per call on CUDA
+    tensors, which is two CUDA kernels with f32 compute (the z_head @ W_l
+    pass into a scratch this function allocates, then the scores)."""
     if z_head.device.type == "cpu":
         return bilinear_scores_plain(z_head, z_tail, w_sym, out_dtype,
                                      compute_dtype)
@@ -80,14 +84,20 @@ def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
     out = torch.empty((L, M, N), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    # enough blocks to fill the card: split each block's z_tail sweep
-    # when the (row tile, outcome) grid alone is small
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = -(-M // 64) * L
-    splits = max(1, -(-2 * sms // blocks))
+    if compute_dtype == torch.float32:
+        # z_head @ W_l for the score pass; its 128x128-tile grid fills the
+        # card without splits
+        zw = torch.empty((L, M, D), dtype=torch.float32, device=dev)
+        zw_ptr, splits = zw.data_ptr(), 1
+    else:
+        # enough blocks to fill the card: split each block's z_tail sweep
+        # when the (row tile, outcome) grid alone is small
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = -(-M // 64) * L
+        zw_ptr, splits = None, max(1, -(-2 * sms // blocks))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().madrigal_bilinear_scores(
-        zh.data_ptr(), zt.data_ptr(), w.data_ptr(), out.data_ptr(),
+        zh.data_ptr(), zt.data_ptr(), w.data_ptr(), zw_ptr, out.data_ptr(),
         L, M, N, int(compute_dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), splits, stream)
     if err != 0:
