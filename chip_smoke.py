@@ -29,7 +29,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
   4. small: the serving path on a small dataset on the card against the
      same model on the CPU;
   5. serving: the serving path at full width, with every kernel's launch
-     count set to 0 just before it and read just after;
+     count set to 0 just before it and read just after; then the bf16
+     throughput export (score_all_pairs with compute_dtype=bfloat16) on
+     the same model, with its own launches and its chunks checked;
   6. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
      masks, and the card's HGT gradients through K2 against those through
@@ -264,11 +266,25 @@ def phase_kernels():
                for L, M, N in ((3, 129, 257), (1, 1, NUM_DRUGS),
                                (2, 256, 1024))
                for o in (f32, bf16)]
+    # the bf16 path's outcome groups and row-wise stores: L not a multiple
+    # of the group, M not a multiple of 64, N odd, N % 8 == 2 and N % 8 ==
+    # 0 (rows at every 2-byte offset, and aligned rows), and small M
+    # against large N (the z_tail sweep split)
+    checks += [k1_check(L, M, N, bf16, o, seed=7)
+               for L, M, N in ((1, 65, NUM_DRUGS), (3, 100, 1002),
+                               (5, 129, 1024), (6, 1, NUM_DRUGS),
+                               (5, 63, 999))
+               for o in (f32, bf16)]
     # the shape score_all_pairs gives K1 in the serving phase, and the
-    # all-pairs export at one 64-outcome chunk
+    # all-pairs export at one 64-outcome chunk; the bf16 export
+    # (score_all_pairs' compute_dtype=bfloat16) at both; last bench.py's op
     checks.append(k1_check(LABEL_CHUNK, SERVE_HEADS, NUM_DRUGS, f32, f32,
                            seed=2, iters=50))
     checks.append(k1_check(LABEL_CHUNK, NUM_DRUGS, NUM_DRUGS, f32, f32,
+                           seed=3, iters=11))
+    checks.append(k1_check(LABEL_CHUNK, SERVE_HEADS, NUM_DRUGS, bf16, f32,
+                           seed=2, iters=50))
+    checks.append(k1_check(LABEL_CHUNK, NUM_DRUGS, NUM_DRUGS, bf16, f32,
                            seed=3, iters=11))
     checks.append(k1_check(LABEL_CHUNK, NUM_DRUGS, NUM_DRUGS, bf16, bf16,
                            seed=3, iters=21))
@@ -460,7 +476,7 @@ def phase_serving(seed: int = 0):
     counts = read_launches()  # counts end here
     launches = counts["bilinear_scores"]
     t_main = time.perf_counter() - t0
-    logging.getLogger("madrigal_tpu_torch").removeHandler(times)
+    phase_s = dict(times.seconds)
 
     require(z.shape == (NUM_DRUGS, D) and np.isfinite(z).all(),
             f"embeddings: shape {z.shape} or not finite")
@@ -491,16 +507,49 @@ def phase_serving(seed: int = 0):
     triple_err = float(np.abs(np.asarray(triple_scores) - want).max())
     require(triple_err <= 1e-4 * np.abs(scores).max(),
             f"triple answers differ from the score tensor by {triple_err}")
+    del scores
+    bf16_export = serve_bf16_export(model, z, zh, zt, w_sym, n_chunks)
+    logging.getLogger("madrigal_tpu_torch").removeHandler(times)
+    bf16_export["scoring_s"] = times.seconds["scoring"]
     emit({"phase": "serving", "drugs": NUM_DRUGS, "outcomes": NUM_LABELS,
           "kg_edges": kg_edges, "label_chunk": LABEL_CHUNK,
           "head_drugs": SERVE_HEADS, "launches": counts,
           "chunk_max_abs_err": chunk_err, "triple_max_abs_err": triple_err,
           "data_build_s": t_data, "kg_build_s": t_kg, "cli_s": t_cli,
           "main_path_s": t_main,
-          "phase_s": times.seconds,
+          "phase_s": phase_s, "bf16_export": bf16_export,
           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     shutil.rmtree(WORK)
     return counts
+
+
+def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
+    """The throughput export, score_all_pairs(compute_dtype=bfloat16), on
+    the serving run's model and embeddings: n_chunks more K1 launches, and
+    its first and last chunk against K1's plain version at bf16 compute
+    within 1e-2 of max|plain| (k1_check's tolerance)."""
+    before = read_launches()["bilinear_scores"]
+    scores = P.score_all_pairs(model, z[:SERVE_HEADS], z,
+                               label_chunk=LABEL_CHUNK,
+                               compute_dtype=torch.bfloat16)
+    launches = read_launches()["bilinear_scores"] - before
+    require(launches == n_chunks,
+            f"K1 launched {launches} times in the bf16 export, expected "
+            f"{n_chunks}")
+    require(scores.shape == (NUM_LABELS, SERVE_HEADS, NUM_DRUGS)
+            and np.isfinite(scores).all(),
+            f"bf16 export: shape {scores.shape} or not finite")
+    chunk_err = 0.0
+    for s in (0, NUM_LABELS - LABEL_CHUNK):
+        ref = bilinear.bilinear_scores_plain(
+            zh, zt, w_sym[s:s + LABEL_CHUNK], torch.float32,
+            torch.bfloat16).cpu().numpy()
+        err = float(np.abs(scores[s:s + LABEL_CHUNK] - ref).max())
+        require(err <= 1e-2 * np.abs(ref).max(),
+                f"bf16 export chunk at outcome {s} differs from the plain "
+                f"version by {err}")
+        chunk_err = max(chunk_err, err)
+    return {"launches": launches, "chunk_max_abs_err": chunk_err}
 
 
 # ------------------------------------------------------------ training

@@ -10,8 +10,8 @@
 //
 // What bounds it: with f32 compute, the f32 FMA rate (f32 does not go
 // through the tensor cores, and no TF32 is used: every product is an
-// fmaf); with bf16 compute and output, the bytes of the [L, M, N] scores,
-// each written once (2 bytes per 256 flops).
+// fmaf); with bf16 compute, the bytes of the [L, M, N] scores, each
+// written once (2 or 4 bytes per 256 flops).
 //
 // f32 compute: two kernels, both the register-blocked FMA product
 // `gemm_f32`.
@@ -34,70 +34,153 @@
 // single values otherwise (N = 6843 on the serving path). Rows >= M and
 // columns >= N are masked; there is no padding and no slice-back.
 //
-// bf16 compute (the design of the first port, unchanged): one block owns
-// rows [i0, i0 + 64) of z_head and one outcome l. It stages the z_head
-// tile and W_l in shared memory, forms ZW = round_c(z_head_tile @ W_l)
-// once on the tensor cores (WMMA 16x16x16, f32 accumulators) and keeps
-// it in shared memory, then walks its share of the z_tail tiles: each
-// 64-row tile is staged, multiplied against ZW and written out through an
-// f32 staging tile, with the ragged edge masked. Its loads are not
-// pipelined (no cp.async / TMA).
+// bf16 compute: one kernel, `bilinear_kernel`. What bounds it is the bytes
+// of the scores: at the all-pairs export chunk (64 x 6843 x 6843) the
+// products take about 0.8 ms at the tensor cores' rate, writing the 6 GB
+// of bf16 scores about 1.8 ms. The design keeps the stores flowing:
+//   1. Outcome blocking. A block owns TM = 64 z_head rows and kGroup
+//      consecutive outcomes (the TPU kernel's tile_l). It forms ZW_g =
+//      round_c(z_head_tile @ W_g) for each of them once, and every z_tail
+//      tile that arrives feeds all of them, so z_tail is read from L2 once
+//      per kGroup outcomes instead of once per outcome.
+//   2. A cp.async ring. z_tail tiles (TN = 64 rows) arrive by 16-byte
+//      cp.async.cg copies into two stages: tile t + 1 is in flight while
+//      tile t is multiplied and written. One __syncthreads a tile, plus
+//      one for the staged output.
+//   3. Tensor-core products on mma.sync.m16n8k16 (bf16 in, f32
+//      accumulators) fed by ldmatrix, whose fragment layouts are known:
+//      ZW is rounded to bf16 once, in registers, and each warp keeps its
+//      rows of every ZW_g as A fragments in registers for the whole sweep,
+//      so the main loop reads only z_tail from shared memory. The score is
+//      converted to the output type once, as it is staged. Rows >= M,
+//      columns >= N and outcomes >= L are masked; there is no padding and
+//      no slice-back.
+//   4. A branch-free epilogue that writes whole 128-byte lines. With N =
+//      6843 (odd) every output row starts at its own 2-byte offset, and
+//      stores of each tile's 64 scores as they fall leave two partly
+//      written 32-byte sectors a row: that took more time than the
+//      products. So each row is staged in a ring of 128 columns, and a
+//      tile writes the row's columns that end on a 128-byte line boundary,
+//      holding back the rest for the next tile: 16-byte streaming stores
+//      (st.global.cs) of aligned lines, with the predicate inside the asm
+//      (no branch a store). Only the first and last tile of a block's
+//      sweep write single values.
+//   The output is bf16 (bench.py's op) or f32 (score_all_pairs'
+//   throughput export).
 //
-// C entry: madrigal_bilinear_scores(...) returns cudaGetLastError().
+// C entry: madrigal_bilinear_scores(...) returns cudaGetLastError();
+// madrigal_bilinear_outcome_group() returns kGroup, from which the wrapper
+// sizes the bf16 grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
 constexpr int D = 128;      // embedding width (the model's feature_dim)
-constexpr int TM = 64;      // z_head rows per block
-constexpr int TN = 64;      // z_tail rows per inner tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 using bf16 = __nv_bfloat16;
 
-// shared-memory leading dimensions: bf16 rows padded to 136 elements
-// (272 B, a multiple of the 32 B that WMMA loads need)
-template <typename T> struct Layout;
-template <> struct Layout<bf16> {
-  static constexpr int LD = D + 8;   // z tiles and ZW
-  static constexpr int LDW = D + 8;  // W_l
-  static constexpr int LDS = TN + 4; // f32 staging of one score tile
-};
+// Streaming stores (st.global.cs, the instruction __stcs emits) of one
+// score, of four, and of 16 raw bytes, done only where `ok`: the predicate
+// is inside the asm, so a masked store costs no branch (__stcs under an
+// `if` compiles to one branch region per store, which serializes the
+// epilogue).
+__device__ __forceinline__ void store1(float* p, float x, bool ok) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
+      "  @q st.global.cs.f32 [%0], %1; }" ::"l"(p), "f"(x), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ void store1(bf16* p, float x, bool ok) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
+      "  @q st.global.cs.b16 [%0], %1; }" ::"l"(p),
+      "h"(__bfloat16_as_ushort(__float2bfloat16_rn(x))), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ void store1(bf16* p, bf16 x, bool ok) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
+      "  @q st.global.cs.b16 [%0], %1; }" ::"l"(p),
+      "h"(__bfloat16_as_ushort(x)), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ void store4(float* p, float4 v, bool ok) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %5, 0;\n"
+      "  @q st.global.cs.v4.f32 [%0], {%1, %2, %3, %4}; }" ::"l"(p),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v, bool ok) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %3, 0;\n"
+      "  @q st.global.cs.v2.b32 [%0], {%1, %2}; }" ::"l"(p),
+      "r"(*reinterpret_cast<const unsigned*>(&lo)),
+      "r"(*reinterpret_cast<const unsigned*>(&hi)), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ void store16(void* p, uint4 v, bool ok) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %5, 0;\n"
+      "  @q st.global.cs.v4.b32 [%0], {%1, %2, %3, %4}; }" ::"l"(p),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"((int)ok)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- bf16
+constexpr int kGroup = 2;  // outcomes a block (G); 2 ran faster than 4
+constexpr int TM = 64;      // z_head rows a block
+constexpr int TN = 64;      // z_tail rows a tile
+// shared-memory row of a bf16 tile: 136 elements (272 B), so that the 8
+// rows an ldmatrix reads start on 8 distinct 16-byte bank groups
+constexpr int LD = D + 8;
+constexpr size_t kZTileBytes = sizeof(bf16) * TM * LD;  // 64 rows (TM == TN)
+static_assert(TM == TN && TM == 16 * (kWarps / 2), "a warp: 16 rows x 32");
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
 }
 
-// byte offsets of the shared-memory regions
-template <typename T> struct Smem {
-  using Lt = Layout<T>;
-  static constexpr size_t zw = 0;  // [TM, LD] compute type, lives on
-  static constexpr size_t zw_bytes = align128(sizeof(T) * TM * Lt::LD);
-  // phase 1 (ZW): z_head tile and W_l
-  static constexpr size_t zh = zw + zw_bytes;
-  static constexpr size_t zh_bytes = align128(sizeof(T) * TM * Lt::LD);
-  static constexpr size_t w = zh + zh_bytes;
-  static constexpr size_t w_bytes = align128(sizeof(T) * D * Lt::LDW);
-  // phase 2 (scores) reuses the phase-1 region: z_tail tile + staging
-  static constexpr size_t zt = zh;
-  static constexpr size_t zt_bytes = align128(sizeof(T) * TN * Lt::LD);
-  static constexpr size_t st = zt + zt_bytes;
-  static constexpr size_t st_bytes = align128(sizeof(float) * TM * Lt::LDS);
-  // per-warp 16x16 f32 scratch for rounding ZW fragments (bf16 only)
-  static constexpr size_t scratch = w + w_bytes;
-  static constexpr size_t scratch_bytes =
-      std::is_same<T, bf16>::value ? sizeof(float) * 256 * kWarps : 0;
-  static constexpr size_t phase1_end = scratch + scratch_bytes;
-  static constexpr size_t phase2_end = st + st_bytes;
-  static constexpr size_t total =
+// The staged output rows, in the output type O. Each row is a ring of
+// CIRC columns holding this tile's 64 scores and the ones of the last tile
+// not yet written; column c sits at (c + shift) % CIRC, shift being the
+// row's offset in scores inside an aligned 16 bytes of `out`, so that every
+// 16 bytes the epilogue stores are one aligned 16-byte read of the stage.
+template <typename O> struct Stage {
+  static constexpr int VEC = 16 / sizeof(O);    // scores in a 16-byte store
+  static constexpr int LINE = 128 / sizeof(O);  // scores in a 128-byte line
+  static constexpr int CIRC = 128;
+  static constexpr int LDS = CIRC + VEC;        // 272 B (bf16), 528 B (f32)
+  static constexpr int ROW_LANES = TN / VEC;    // lanes that write one row
+  static constexpr int ROWS = 32 / ROW_LANES;   // rows a warp writes at once
+  static_assert(TN + LINE <= CIRC, "a tile and a row's carry fit its ring");
+};
+
+// byte offsets of the shared-memory regions for G outcomes a block
+template <typename O, int G> struct Smem {
+  // phase 1 (ZW): the z_head tile, W_g (128 rows) and ZW_g, which each
+  // warp then loads into registers
+  static constexpr size_t zh = 0;
+  static constexpr size_t w = zh + kZTileBytes;
+  static constexpr size_t zw = w + 2 * kZTileBytes;
+  static constexpr size_t phase1_end = zw + kZTileBytes;
+  // phase 2 (scores) reuses it: the two-stage z_tail ring, then the G
+  // staged output tiles [G][TM][LDS] in O
+  static constexpr size_t ring = 0;
+  static constexpr size_t stage = ring + 2 * kZTileBytes;
+  static constexpr size_t phase2_end =
+      stage + align128(sizeof(O) * G * TM * Stage<O>::LDS);
+  // each output row's offset in scores inside its 128-byte line [G * TM]
+  static constexpr size_t offs =
       phase1_end > phase2_end ? phase1_end : phase2_end;
+  static constexpr size_t total = offs + G * TM;
 };
 
 template <typename O> __device__ __forceinline__ O from_f32(float x);
@@ -108,162 +191,269 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Copy rows [r0, r0 + rows) of a row-major [nrows, D] matrix into shared
-// memory with leading dimension LD; rows at or past nrows are zero.
-// Global reads are 16-byte vectors (the wrapper checks the alignment).
-template <typename T, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zeros where not `ok`
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` of this thread's groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// Rows [r0, r0 + rows) of a row-major bf16 [nrows, D] matrix into shared
+// memory with leading dimension LD, by cp.async; rows at or past nrows
+// are zero. The wrapper checks the 16-byte alignment.
+__device__ __forceinline__ void copy_rows(bf16* dst,
+                                          const bf16* __restrict__ src,
                                           int r0, int rows, int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
+  constexpr int PER_ROW = D / 8;
   for (int idx = threadIdx.x; idx < rows * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) {
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c));
-    }
-    if constexpr ((LD * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) dst[r * LD + c + q] = e[q];
-    }
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * LD + c, src + (size_t)(ok ? r0 + r : 0) * D + c, ok);
   }
 }
 
-// ---------------------------------------------------------------- bf16
-// ZW[TM, D] = zh[TM, D] @ W[D, D]: warp w owns rows 16*(w%4) and the
-// four 16-column fragments starting at 64*(w/4).
-__device__ __forceinline__ void zw_bf16(bf16* zw_s, const bf16* zh_s,
-                                        const bf16* w_s, float* scratch) {
-  using namespace nvcuda;
-  using Lt = Layout<bf16>;
+// four 8x8 bf16 matrices from shared memory, lane i giving the address of
+// row i % 8 of matrix i / 8; with .trans each is transposed
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// acc[16x8] += a[16x16] @ b[16x8], bf16 in, f32 accumulators. Lane (g, q)
+// = (lane / 4, lane % 4) holds acc rows g and g + 8, columns 2q and 2q + 1.
+__device__ __forceinline__ void mma16816(float (&acc)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a
+// row-major [*, LD] bf16 tile.
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* t,
+                                       int r0, int k0) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(a, t + (r0 + lane % 16) * LD + k0 + (lane / 16) * 8);
+}
+
+// ZW[TM, D] = round_bf16(zh[TM, D] @ W[D, D]): warp w owns rows 16*(w%4)
+// and columns [64*(w/4), +64). W is row-major [k][n], read transposed.
+__device__ __forceinline__ void zw_tile(bf16* zw, const bf16* zh,
+                                        const bf16* w_s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = 16 * (warp % 4), c0 = 64 * (warp / 4);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  float acc[8][4] = {};
 #pragma unroll
-  for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.0f);
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    unsigned a[4];
+    load_a(a, zh, r0, k0);
 #pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, zh_s + r0 * Lt::LD + k, Lt::LD);
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, w_s + k * Lt::LDW + c0 + 16 * f, Lt::LDW);
-      wmma::mma_sync(acc[f], a, b, acc[f]);
+    for (int p = 0; p < 4; ++p) {
+      unsigned b[4];  // columns c0 + 16p + [0, 8) and [8, 16)
+      ldsm_x4_trans(b, w_s + (k0 + lane % 16) * LD + c0 + 16 * p +
+                           (lane / 16) * 8);
+      mma16816(acc[2 * p], a, b[0], b[1]);
+      mma16816(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
-  float* scr = scratch + 256 * warp;
+  const int g = lane / 4, q = lane % 4;
 #pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    wmma::store_matrix_sync(scr, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      zw_s[(r0 + e / 16) * Lt::LD + c0 + 16 * f + e % 16] =
-          __float2bfloat16_rn(scr[e]);
-    }
-    __syncwarp();
+  for (int nt = 0; nt < 8; ++nt) {
+    const int c = c0 + 8 * nt + 2 * q;
+    *reinterpret_cast<__nv_bfloat162*>(zw + (r0 + g) * LD + c) =
+        __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(zw + (r0 + g + 8) * LD + c) =
+        __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
   }
 }
 
-// S[TM, TN] = ZW[TM, D] @ zt[TN, D]^T into the f32 staging tile: warp w
-// owns rows 16*(w%4) and two 16-column fragments from 32*(w/4).
-__device__ __forceinline__ void scores_bf16(float* st_s, const bf16* zw_s,
-                                            const bf16* zt_s) {
-  using namespace nvcuda;
-  using Lt = Layout<bf16>;
-  const int warp = threadIdx.x / 32;
-  const int r0 = 16 * (warp % 4), c0 = 32 * (warp / 4);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-#pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, zw_s + r0 * Lt::LD + k, Lt::LD);
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      // B[k][n] = zt[n][k]: the row-major z_tail tile read column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, zt_s + (c0 + 16 * f) * Lt::LD + k, Lt::LD);
-      wmma::mma_sync(acc[f], a, b, acc[f]);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(st_s + r0 * Lt::LDS + c0 + 16 * f, acc[f],
-                            Lt::LDS, wmma::mem_row_major);
-  }
-}
-
-// grid: (ceil(M / TM), L, splits). Block (x, l, z) owns z_head rows
-// [TM*x, TM*x + TM), outcome l, and z_tail tiles [z*per, (z+1)*per).
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-bilinear_kernel(const T* __restrict__ z_head, const T* __restrict__ z_tail,
-                const T* __restrict__ w, O* __restrict__ out, int M, int N,
+// grid: (ceil(M / TM), ceil(L / G), splits). Block (x, y, z) owns z_head
+// rows [TM*x, TM*x + TM), outcomes [G*y, G*y + G) and z_tail tiles
+// [z*per, (z+1)*per). In phase 2 warp w owns rows 16*(w%4) and columns
+// [32*(w/4), +32) of each outcome's 64x64 score tile.
+template <typename O, int G>
+__global__ void __launch_bounds__(kThreads, G <= 2 ? 2 : 1)
+bilinear_kernel(const bf16* __restrict__ z_head,
+                const bf16* __restrict__ z_tail, const bf16* __restrict__ w,
+                O* __restrict__ out, int L, int M, int N,
                 int tiles_per_split) {
-  using Lt = Layout<T>;
-  using S = Smem<T>;
+  using S = Smem<O, G>;
+  using St = Stage<O>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* zw_s = reinterpret_cast<T*>(smem + S::zw);
-  T* zh_s = reinterpret_cast<T*>(smem + S::zh);
-  T* w_s = reinterpret_cast<T*>(smem + S::w);
-  T* zt_s = reinterpret_cast<T*>(smem + S::zt);
+  bf16* zh_s = reinterpret_cast<bf16*>(smem + S::zh);
+  bf16* w_s = reinterpret_cast<bf16*>(smem + S::w);
+  bf16* zw_s = reinterpret_cast<bf16*>(smem + S::zw);
+  bf16* ring = reinterpret_cast<bf16*>(smem + S::ring);
+  O* stage = reinterpret_cast<O*>(smem + S::stage);
+  unsigned char* offs = smem + S::offs;
 
-  const int i0 = blockIdx.x * TM;
-  const int l = blockIdx.y;
+  const int i0 = blockIdx.x * TM, l0 = blockIdx.y * G;
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = blockIdx.z * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
   if (t_begin >= t_end) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 4, wn = warp / 4, gq = lane / 4, q = lane % 4;
 
-  // phase 1: ZW = round_c(z_head_tile @ W_l)
-  load_rows<T, Lt::LD>(zh_s, z_head, i0, TM, M);
-  load_rows<T, Lt::LDW>(w_s, w + (size_t)l * D * D, 0, D, D);
-  __syncthreads();
-  zw_bf16(zw_s, zh_s, w_s, reinterpret_cast<float*>(smem + S::scratch));
-  __syncthreads();  // ZW complete; the phase-1 region is free again
+  // output row (g, r) starts at score (l0 + g, i0 + r, 0): its offset in
+  // scores inside the 128-byte line there
+  for (int e = threadIdx.x; e < G * TM; e += kThreads) {
+    const size_t first = ((size_t)(l0 + e / TM) * M + i0 + e % TM) * N;
+    offs[e] = static_cast<unsigned char>(
+        (reinterpret_cast<uintptr_t>(out) / sizeof(O) + first) % St::LINE);
+  }
 
-  O* out_l = out + (size_t)l * M * N;
+  // phase 1: ZW_g = round_c(z_head_tile @ W_g) for each outcome of the
+  // block, kept as this warp's A fragments (rows 16*wm, all of K) in
+  // registers; past L, W_g keeps the last outcome's values (masked below)
+  unsigned a[G][D / 16][4];
+  copy_rows(zh_s, z_head, i0, TM, M);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (l0 + g < L) copy_rows(w_s, w + (size_t)(l0 + g) * D * D, 0, D, D);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    zw_tile(zw_s, zh_s, w_s);
+    __syncthreads();  // ZW_g complete
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      load_a(a[g][kk], zw_s, 16 * wm, 16 * kk);
+    }
+    __syncthreads();  // before the next W_g and ZW_g, or the ring, land
+  }
+
+  // phase 2: the z_tail tiles through the two-stage ring
+  const int sub = lane / St::ROW_LANES, k = lane % St::ROW_LANES;
+  copy_rows(ring + (t_begin & 1) * TN * LD, z_tail, t_begin * TN, TN, N);
+  cp_async_commit();
+#pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * TN;
-    load_rows<T, Lt::LD>(zt_s, z_tail, j0, TN, N);
-    __syncthreads();
-    float* st_s = reinterpret_cast<float*>(smem + S::st);
-    scores_bf16(st_s, zw_s, zt_s);
-    __syncthreads();
-    for (int e = threadIdx.x; e < TM * TN; e += kThreads) {
-      const int gi = i0 + e / TN, gj = j0 + e % TN;
-      if (gi < M && gj < N) {
-        out_l[(size_t)gi * N + gj] =
-            from_f32<O>(st_s[(e / TN) * Lt::LDS + e % TN]);
+    if (t + 1 < t_end) {
+      copy_rows(ring + ((t + 1) & 1) * TN * LD, z_tail, (t + 1) * TN, TN, N);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed; tile t + 1 stays in flight
+    __syncthreads();     // tile t in place for every thread; stage free
+    const bf16* zt = ring + (t & 1) * TN * LD;
+
+    float acc[G][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned b[2][4];  // columns 32wn + 16p + [0, 8) and [8, 16)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldsm_x4(b[p], zt + (32 * wn + 16 * p + lane % 8 + (lane / 16) * 8) *
+                               LD + 16 * kk + ((lane / 8) % 2) * 8);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma16816(acc[g][2 * p], a[g][kk], b[p][0], b[p][1]);
+          mma16816(acc[g][2 * p + 1], a[g][kk], b[p][2], b[p][3]);
+        }
       }
     }
-    __syncthreads();  // before the next tile overwrites zt_s / st_s
+
+    // stage: column TN*t + c of row (g, r) into its ring
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = g * TM + 16 * wm + gq + 8 * h;
+        const int base = TN * t + (offs[rr] & (St::VEC - 1));
+        O* row = stage + rr * St::LDS;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = base + 32 * wn + 8 * nt + 2 * q;
+          row[c & (St::CIRC - 1)] = from_f32<O>(acc[g][nt][2 * h]);
+          row[(c + 1) & (St::CIRC - 1)] = from_f32<O>(acc[g][nt][2 * h + 1]);
+        }
+      }
+    }
+    __syncthreads();  // the staged tiles are complete
+
+    // store: a row's columns [TN*t - off, TN*t + TN - off) are whole
+    // 128-byte lines of `out` (off: its offset in its line), written as
+    // 16-byte vectors, ROW_LANES lanes a row; its last off columns wait
+    // for the next tile. The first tile of the block's sweep starts at
+    // column TN*t, the last one ends at min(TN*t + TN, N): single values.
+    const bool whole = t != t_begin && t != t_end - 1;  // block-uniform
+#pragma unroll 2
+    for (int rr = warp * St::ROWS + sub; rr < G * TM;
+         rr += kWarps * St::ROWS) {
+      const int g = rr / TM, r = rr % TM;
+      const bool row_ok = l0 + g < L && i0 + r < M;
+      O* dst = out + ((size_t)(l0 + g) * M + i0 + r) * N;
+      const int off = offs[rr], shift = off & (St::VEC - 1);
+      const O* src = stage + rr * St::LDS;
+      if (whole) {
+        const int c = TN * t - off + St::VEC * k;
+        store16(dst + c,
+                *reinterpret_cast<const uint4*>(
+                    src + ((c + shift) & (St::CIRC - 1))),
+                row_ok);
+      } else {
+        const int lo = t == t_begin ? TN * t : TN * t - off;
+        const int hi =
+            t == t_end - 1 ? min(TN * t + TN, N) : TN * t + TN - off;
+        for (int c = lo + k; c < hi; c += St::ROW_LANES) {
+          store1(dst + c, src[(c + shift) & (St::CIRC - 1)], row_ok);
+        }
+      }
+    }
   }
 }
 
-template <typename T, typename O>
+template <typename O>
 cudaError_t launch(const void* z_head, const void* z_tail, const void* w,
                    void* out, int L, int M, int N, int splits,
                    cudaStream_t stream) {
-  const size_t smem = Smem<T>::total;
+  constexpr int G = kGroup;
+  const size_t smem = Smem<O, G>::total;
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bilinear_kernel<O, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = (N + TN - 1) / TN;
   if (splits < 1) splits = 1;
   if (splits > n_tiles) splits = n_tiles;
   const int per = (n_tiles + splits - 1) / splits;
-  const dim3 grid((M + TM - 1) / TM, L, (n_tiles + per - 1) / per);
-  bilinear_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(z_head), static_cast<const T*>(z_tail),
-      static_cast<const T*>(w), static_cast<O*>(out), M, N, per);
+  const dim3 grid((M + TM - 1) / TM, (L + G - 1) / G,
+                  (n_tiles + per - 1) / per);
+  bilinear_kernel<O, G><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(z_head), static_cast<const bf16*>(z_tail),
+      static_cast<const bf16*>(w), static_cast<O*>(out), L, M, N, per);
   return cudaGetLastError();
 }
 
@@ -352,41 +542,6 @@ __device__ __forceinline__ void stash_kmajor(float* dst,
     const int k = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
     *reinterpret_cast<float4*>(dst + k * LDT + c) = v[h];
   }
-}
-
-// Streaming stores (st.global.cs, the instruction __stcs emits) of one
-// and of four scores, done only where `ok`: the predicate is inside the
-// asm, so a masked store costs no branch (__stcs under an `if` compiles
-// to one branch region per store, which serializes the epilogue).
-__device__ __forceinline__ void store1(float* p, float x, bool ok) {
-  asm volatile(
-      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
-      "  @q st.global.cs.f32 [%0], %1; }" ::"l"(p), "f"(x), "r"((int)ok)
-      : "memory");
-}
-__device__ __forceinline__ void store1(bf16* p, float x, bool ok) {
-  asm volatile(
-      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
-      "  @q st.global.cs.b16 [%0], %1; }" ::"l"(p),
-      "h"(__bfloat16_as_ushort(__float2bfloat16_rn(x))), "r"((int)ok)
-      : "memory");
-}
-__device__ __forceinline__ void store4(float* p, float4 v, bool ok) {
-  asm volatile(
-      "{ .reg .pred q; setp.ne.b32 q, %5, 0;\n"
-      "  @q st.global.cs.v4.f32 [%0], {%1, %2, %3, %4}; }" ::"l"(p),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"((int)ok)
-      : "memory");
-}
-__device__ __forceinline__ void store4(bf16* p, float4 v, bool ok) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  asm volatile(
-      "{ .reg .pred q; setp.ne.b32 q, %3, 0;\n"
-      "  @q st.global.cs.v2.b32 [%0], {%1, %2}; }" ::"l"(p),
-      "r"(*reinterpret_cast<const unsigned*>(&lo)),
-      "r"(*reinterpret_cast<const unsigned*>(&hi)), "r"((int)ok)
-      : "memory");
 }
 
 // C[l] = A[l] @ B[l]^T on one 128x128 tile of C, in f32 FMAs.
@@ -562,8 +717,8 @@ int madrigal_bilinear_scores(const void* z_head, const void* z_tail,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (compute_bf16) {
-    err = out_bf16 ? launch<bf16, bf16>(z_head, z_tail, w, out, L, M, N, splits, s)
-                   : launch<bf16, float>(z_head, z_tail, w, out, L, M, N, splits, s);
+    err = out_bf16 ? launch<bf16>(z_head, z_tail, w, out, L, M, N, splits, s)
+                   : launch<float>(z_head, z_tail, w, out, L, M, N, splits, s);
   } else {
     const float* zh = static_cast<const float*>(z_head);
     const float* zt = static_cast<const float*>(z_tail);
@@ -576,5 +731,9 @@ int madrigal_bilinear_scores(const void* z_head, const void* z_tail,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// Outcomes a block of the bf16 kernel owns: its grid is ceil(M / 64) x
+// ceil(L / this) x splits.
+int madrigal_bilinear_outcome_group(void) { return kGroup; }
 
 }  // extern "C"

@@ -13,7 +13,9 @@ for CPU tensors; there is no fallback between the two. The kernel is
 built at first use by `ops/_build.py` (nvcc for sm_90a into
 `build/kernels/`, loaded with ctypes). With f32 compute it runs as two
 CUDA kernels, z_head @ W_l into an f32 scratch [L, M, 128] and then the
-scores; with bf16 compute as one.
+scores; with bf16 compute as one, whose block owns 64 z_head rows and a
+group of consecutive outcomes (`kGroup` in the source, which the library
+reports).
 """
 from __future__ import annotations
 
@@ -45,8 +47,11 @@ def bilinear_scores_plain(z_head: torch.Tensor, z_tail: torch.Tensor,
 
 def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _build.load("bilinear", "madrigal_bilinear_scores",
-                       [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
+    lib = _build.load("bilinear", "madrigal_bilinear_scores",
+                      [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
+    lib.madrigal_bilinear_outcome_group.argtypes = []
+    lib.madrigal_bilinear_outcome_group.restype = ci
+    return lib
 
 
 def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
@@ -90,10 +95,11 @@ def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
         zw = torch.empty((L, M, D), dtype=torch.float32, device=dev)
         zw_ptr, splits = zw.data_ptr(), 1
     else:
-        # enough blocks to fill the card: split each block's z_tail sweep
-        # when the (row tile, outcome) grid alone is small
+        # a block owns 64 rows and a group of outcomes: split each block's
+        # z_tail sweep when that grid alone is smaller than two blocks an SM
+        group = _library().madrigal_bilinear_outcome_group()
+        blocks = -(-M // 64) * -(-L // group)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = -(-M // 64) * L
         zw_ptr, splits = None, max(1, -(-2 * sms // blocks))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().madrigal_bilinear_scores(

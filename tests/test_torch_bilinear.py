@@ -21,7 +21,10 @@ from madrigal_tpu.ops.bilinear_pallas import (
 )
 from madrigal_tpu_torch.ops import bilinear as tb
 
-SHAPES = [(3, 256, 1024), (3, 300, 300)]  # (L, M, N); the second is ragged
+# (L, M, N): whole tiles; ragged; and one row against the odd serving
+# width and a row width with N % 8 == 2, with L not a multiple of the
+# bf16 kernel's outcome group
+SHAPES = [(3, 256, 1024), (3, 300, 300), (5, 1, 6843), (3, 100, 1002)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 

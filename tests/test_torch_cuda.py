@@ -33,15 +33,21 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(5, 300, 1000), (2, 1, 7), (3, 64, 64),
                                    (3, 129, 257), (1, 1, 6843),
-                                   (2, 256, 1024)])
+                                   (2, 256, 1024), (1, 65, 6843),
+                                   (3, 100, 1002), (5, 129, 1024),
+                                   (6, 1, 6843), (5, 63, 999)])
 @pytest.mark.parametrize("compute,out", [("f32", "f32"), ("bf16", "bf16"),
                                          ("bf16", "f32"), ("f32", "bf16")])
 def test_bilinear_kernel_matches_plain(cuda, shape, compute, out):
     """Shapes inside one tile, across the f32 path's 128x128 tile edges
     (129, 257), one row against the serving width (N % 4 != 0: one-value
-    stores) and whole tiles with N % 4 == 0 (16-byte stores). Each call
-    counts one launch, though f32 compute runs two CUDA kernels (z_head
-    @ W_l, then the scores)."""
+    stores) and whole tiles with N % 4 == 0 (16-byte stores). For the bf16
+    path's outcome groups and row-wise stores: L not a multiple of the
+    group (1, 3, 5, 6), M not a multiple of 64, N odd, N % 8 == 2 and
+    N % 8 == 0 (rows at every 2-byte offset, and aligned rows), and small
+    M against large N (the z_tail sweep split). Each call counts one
+    launch, though f32 compute runs two CUDA kernels (z_head @ W_l, then
+    the scores)."""
     L, M, N = shape
     rng = np.random.RandomState(0)
     zh = torch.from_numpy(rng.randn(M, 128).astype(np.float32)).to(cuda)
