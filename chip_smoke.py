@@ -6,15 +6,19 @@ Run from the root of a checkout, on a machine with a card:
 
 It builds the port's CUDA kernels from `madrigal_tpu_torch/csrc/` into
 `build/kernels/`, holds each against its plain PyTorch version on the
-card, times it, and then drives the two ported paths of the flagship DDI
+card, times it, and then drives the ported paths of the flagship DDI
 model (TWOSIDES `sweep_config_hardy_sweep_321`: 128-d embeddings, GIN
 128x3+128, 2-layer 4-head HGT, chemCPA 128 with a 512x2 autoencoder,
 2-layer 8x256 norm-first x-attn fusion with 2 tx bottlenecks) with random
 weights from a seed: serving at 6,843 drugs, 960 outcomes and the
 PrimeKG-scale synthetic KG through `madrigal_tpu_torch.cli.predict` and
-`madrigal_tpu_torch.eval.predict.score_all_pairs`, and stage-3 training
-through `madrigal_tpu_torch.cli.train_ddi` on the same data (divided by
-TRAIN_SHRINK) with the memory flags TRAIN_MEMORY_FLAGS.
+`madrigal_tpu_torch.eval.predict.score_all_pairs`; the normalized-rank
+export of the same model through `madrigal_tpu_torch.eval.ranks.rank_tensor`
+for RANK_CHUNK of its 960 outcomes at all 6,843 drugs; the two-checkpoint
+ensemble through the serving CLI on the reference scale divided by
+ENSEMBLE_SHRINK; and stage-3 training, with its evaluation sweep and
+test pass, through `madrigal_tpu_torch.cli.train_ddi` on the same data
+(divided by TRAIN_SHRINK) with the memory flags TRAIN_MEMORY_FLAGS.
 
 Phases, in order; any failure ends the script with a non-zero exit:
 
@@ -32,13 +36,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
      count set to 0 just before it and read just after; then the bf16
      throughput export (score_all_pairs with compute_dtype=bfloat16) on
      the same model, with its own launches and its chunks checked;
-  6. train_small: 3 training steps at flagship widths (dropout 0) on a
+  6. ranks: rank_tensor on the serving model for RANK_CHUNK outcomes at
+     all 6,843 drugs (counts set to 0 before, read after); K1's scores
+     and the per-outcome rank timed apart; two outcomes against a numpy
+     float32 form of the JAX package's compiled formula, exactly, and
+     against the float64 offline path within 2.5e-7; every outcome's
+     layout; a tie case against the numpy stable formula, exactly;
+  7. predict_ensemble: the serving CLI with two checkpoints at the
+     reference scale / ENSEMBLE_SHRINK (counts set to 0 before, read
+     after) exporting ranks, sigmoid-mean scores and triple
+     probabilities, checked against the seed files, and once more
+     without --keep_seed_ranks;
+  8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
-     masks, and the card's HGT gradients through K2 against those through
-     the plain `index_add_` backward (`--no_src_mxu`);
-  7. training: the training CLI at the flagship configuration for 3
-     epochs, with every kernel's launch count set to 0 just before it and
-     read just after.
+     masks, with the Evaluator's val metrics after them, and the card's
+     HGT gradients through K2 against those through the plain
+     `index_add_` backward (`--no_src_mxu`);
+  9. training: the training CLI at the flagship configuration for 3
+     epochs with one evaluation sweep and the test pass, with every
+     kernel's launch count set to 0 just before it and read just after.
 
 Standard output: one JSON line per phase, the `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
@@ -67,6 +83,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +104,8 @@ from madrigal_tpu_torch.data.synthetic import (
 )
 from madrigal_tpu_torch.device import resolve_device
 from madrigal_tpu_torch.eval import predict as P
+from madrigal_tpu_torch.eval import ranks as R
+from madrigal_tpu_torch.eval.evaluate import Evaluator
 from madrigal_tpu_torch.models.encoder import build_model, init_weights
 from madrigal_tpu_torch.ops import _build, bilinear, segment_sorted
 from madrigal_tpu_torch.train.checkpoint import save_checkpoint
@@ -114,6 +133,14 @@ TRIPLES = ["0:1:2", "5:10:20"]
 # 80 GB), which recomputes each HGT edge type's messages in the backward
 TRAIN_SHRINK, TRAIN_EPOCHS = 1, 3
 TRAIN_MEMORY_FLAGS = ["--set", "model.encoder.hgt.remat_edge_types=true"]
+# one evaluation sweep (after epoch index 2 of 0-2) and the test pass
+TRAIN_EVAL_INTERVAL = 2
+# the rank export: outcomes ranked (of 960; all 960 at 6,843 drugs are
+# 180 GB of f32, the chunk 6.0 GB); the ensemble CLI's scale divisor
+# (855 drugs, 120 outcomes: 0.35 GB a rank tensor) and label chunk
+RANK_CHUNK = 32
+ENSEMBLE_SHRINK, ENSEMBLE_CHUNK = 8, 32
+ENSEMBLE_TRIPLES = ["0:1:2", "7:100:3", "119:854:0"]
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -282,6 +309,9 @@ def phase_kernels():
                            seed=2, iters=50))
     checks.append(k1_check(LABEL_CHUNK, NUM_DRUGS, NUM_DRUGS, f32, f32,
                            seed=3, iters=11))
+    # the rank export's chunk: RANK_CHUNK outcomes over all drugs, f32
+    checks.append(k1_check(RANK_CHUNK, NUM_DRUGS, NUM_DRUGS, f32, f32,
+                           seed=4, iters=11))
     checks.append(k1_check(LABEL_CHUNK, SERVE_HEADS, NUM_DRUGS, bf16, f32,
                            seed=2, iters=50))
     checks.append(k1_check(LABEL_CHUNK, NUM_DRUGS, NUM_DRUGS, bf16, f32,
@@ -390,7 +420,29 @@ def phase_k2_kernels():
             "the last timed K2 row is not the training run's largest")
     for row in checks:
         emit({"phase": "kernels", "kernel": "sorted_segment_sum", **row})
+    emit({"phase": "kernels", "kernel": "sorted_segment_sum",
+          "per_step": k2_step(TRAIN_SHRINK)})
     return checks
+
+
+def k2_step(shrink: int) -> dict:
+    """K2 over one training step: every (HGT layer, live edge type)
+    launch at the shape the run gives it, each timed alone, summed, and
+    the sum of their bounds."""
+    shapes = k2_shapes(shrink)
+    hgt = flagship_config(NUM_LABELS).model.encoder.hgt
+    layers = k2_live_edge_types(list(shapes), hgt.num_layers)
+    ms, bound = {}, {}
+    for et, (e_real, e_pad, n) in shapes.items():
+        data, starts = k2_inputs(e_real, e_pad, n, torch.float32, seed=8)
+        ms[et] = cuda_ms(
+            lambda: segment_sorted.sorted_segment_sum(data, starts, n), 20)
+        bound[et] = k2_bound(e_real, n, K2_WIDTH, torch.float32)[0]
+        del data, starts
+    launches = [et for layer in layers for et in layer]
+    return {"launches": len(launches),
+            "ms": sum(ms[et] for et in launches),
+            "bound_ms": sum(bound[et] for et in launches)}
 
 
 # ------------------------------------------------------------- serving
@@ -520,7 +572,7 @@ def phase_serving(seed: int = 0):
           "phase_s": phase_s, "bf16_export": bf16_export,
           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     shutil.rmtree(WORK)
-    return counts
+    return counts, model, z
 
 
 def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
@@ -550,6 +602,213 @@ def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
                 f"version by {err}")
         chunk_err = max(chunk_err, err)
     return {"launches": launches, "chunk_max_abs_err": chunk_err}
+
+
+# --------------------------------------------------------------- ranks
+def np_rank_levels(m: int) -> np.ndarray:
+    """The values of a normalized-rank triangle, ascending: float32(k) + 1
+    times float32(1) / float32(m), k = 0..m-1 (the JAX package's compiled
+    formula: XLA turns its division by m into this product)."""
+    return ((np.arange(m, dtype=np.float32) + np.float32(1))
+            * (np.float32(1) / np.float32(m)))
+
+
+def np_rank_lower(scores: np.ndarray) -> np.ndarray:
+    """The strict lower triangle (row-major) of the normalized-rank matrix
+    of `scores` in numpy float32: the stable argsort of the triangle's
+    scores, its inverse permutation (what the reference's second argsort
+    computes), then np_rank_levels."""
+    n = scores.shape[0]
+    rows, cols = np.tril_indices(n, -1)
+    order = np.argsort(scores[rows, cols], kind="stable")
+    out = np.empty(order.shape[0], np.float32)
+    out[order] = np_rank_levels(order.shape[0])
+    return out
+
+
+def check_rank_layout(r: torch.Tensor, levels: torch.Tensor,
+                      rows: torch.Tensor, cols: torch.Tensor) -> None:
+    """One outcome's rank matrix on the card: symmetric, zero diagonal,
+    and the strict lower triangle a permutation of `levels`."""
+    require(torch.equal(r, r.T), "a rank matrix is not symmetric")
+    require(bool((torch.diagonal(r) == 0).all()),
+            "a rank matrix has a nonzero diagonal")
+    require(torch.equal(torch.sort(r[rows, cols]).values, levels),
+            "a rank triangle is not a permutation of {1..m}/m")
+
+
+def phase_ranks(model, z: np.ndarray) -> dict:
+    """rank_tensor on the serving model for RANK_CHUNK outcomes at every
+    drug (one K1 launch, then one rank a outcome), into host memory."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    n = z.shape[0]
+    m = n * (n - 1) // 2
+    w_sym = P.decoder_weight(model)[:RANK_CHUNK].contiguous()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    ranks = R.rank_tensor(z, w_sym, chunk=RANK_CHUNK, device="cuda")
+    t_main = time.perf_counter() - t0
+    counts = read_launches()  # counts end here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(counts == {"bilinear_scores": 1, "sorted_segment_sum": 0},
+            f"rank path launches {counts}, expected K1 once")
+    require(ranks.shape == (RANK_CHUNK, n, n), f"ranks {ranks.shape}")
+
+    # K1's scores for the chunk and one outcome's rank, timed apart
+    zc = torch.from_numpy(z).cuda()
+    k1_ms = cuda_ms(lambda: bilinear.bilinear_scores(
+        zc, zc, w_sym, torch.float32, torch.float32), 5)
+    scores = bilinear.bilinear_scores(zc, zc, w_sym, torch.float32,
+                                      torch.float32)
+    order_idx = R.lower_tri_order(n, False, "cuda")  # once a chunk
+    rank_ms = cuda_ms(lambda: R.rank_lower(scores[0], order_idx, True), 5)
+    del order_idx
+
+    # every outcome's layout, on the card
+    rows, cols = torch.tril_indices(n, n, -1, device="cuda")
+    levels = torch.from_numpy(np_rank_levels(m)).cuda()
+    for r in ranks:
+        check_rank_layout(torch.from_numpy(r).cuda(), levels, rows, cols)
+    del rows, cols, levels
+
+    # two outcomes against numpy float32 (exactly) and the float64 offline
+    # path (within 2.5e-7: m > 2^24, so the float32 ranks round), and a
+    # tie case; the numpy sorts run in threads beside the offline pool
+    picked = (0, RANK_CHUNK - 1)
+    raw = np.stack([scores[l].cpu().numpy() for l in picked])
+    ties = torch.round(scores[0] * 2) / 2
+    n_values = int(torch.unique(ties).numel())
+    tie_ranks = R.normalized_rank_matrix(ties).cpu().numpy()
+    ties = ties.cpu().numpy()
+    del scores
+    torch.cuda.empty_cache()
+    raw_path, off_path = str(WORK / "raw.npy"), str(WORK / "offline.npy")
+    np.save(raw_path, raw)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        refs = [pool.submit(np_rank_lower, x) for x in (*raw, ties)]
+        offline = np.asarray(R.normalize_scores_offline(
+            raw_path, off_path, num_workers=2))
+        refs = [f.result() for f in refs]
+    t_refs = time.perf_counter() - t0
+    lo = np.tril_indices(n, -1)
+    off_err = 0.0
+    for i, l in enumerate(picked):
+        require(np.array_equal(ranks[l][lo], refs[i]),
+                f"outcome {l}: ranks differ from the numpy float32 formula")
+        off_err = max(off_err, float(np.abs(ranks[l] - offline[i]).max()))
+    require(off_err <= 2.5e-7,
+            f"ranks differ from the float64 offline path by {off_err}")
+    require(np.array_equal(tie_ranks[lo], refs[2])
+            and np.array_equal(tie_ranks, tie_ranks.T),
+            "tie case: ranks differ from the numpy stable formula")
+    del ranks, raw, offline, tie_ranks, ties
+    emit({"phase": "ranks", "drugs": n, "outcomes": RANK_CHUNK,
+          "of_outcomes": NUM_LABELS, "host_gb": RANK_CHUNK * n * n * 4 / 1e9,
+          "launches": counts, "rank_tensor_s": t_main,
+          "k1_chunk_ms": k1_ms, "rank_ms_per_outcome": rank_ms,
+          "checked_exact_outcomes": list(picked),
+          "max_abs_err_vs_offline_f64": off_err,
+          "tie_case_distinct_values": n_values, "reference_s": t_refs,
+          "peak_device_mem_gb": peak})
+    shutil.rmtree(WORK)
+    return counts
+
+
+def phase_predict_ensemble() -> dict:
+    """The serving CLI with two checkpoints (seeds 0 and 1) on the
+    reference scale divided by ENSEMBLE_SHRINK: ranks, sigmoid-mean
+    scores and triple probabilities."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    ds = make_reference_scale_dataset(
+        seed=0, **reference_scale_kwargs(ENSEMBLE_SHRINK))
+    cfg = flagship_config(ds.num_labels)
+    ckpts = []
+    for seed in (0, 1):
+        ckpts.append(str(WORK / f"seed{seed}.pt"))
+        save_checkpoint(ckpts[-1], random_model(cfg, ds, seed), cfg)
+    n, L = ds.num_drugs, ds.num_labels
+    del ds
+    ranks_out, scores_out = str(WORK / "ranks.npy"), str(WORK / "scores.npy")
+    argv = ["--checkpoint", *ckpts, "--synthetic_scale",
+            "--synthetic_scale_shrink", str(ENSEMBLE_SHRINK), "--seed", "0",
+            "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
+            "--eval_type", "str+kg_full"]
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    probs = cli_predict.main(argv + [
+        "--export_ranks", ranks_out, "--export_scores", scores_out,
+        "--export_embeddings", str(WORK / "z.npy"), "--keep_seed_ranks",
+        "--triples", *ENSEMBLE_TRIPLES])
+    t_cli = time.perf_counter() - t0
+    counts = read_launches()  # counts end here
+    chunks = -(-L // ENSEMBLE_CHUNK)
+    require(counts == {"bilinear_scores": 4 * chunks,
+                       "sorted_segment_sum": 0},
+            f"ensemble launches {counts}, expected 2 seeds x {chunks} "
+            "chunks for the ranks and as many for the scores")
+
+    # the ensemble ranks: the gmean of the seed files, re-ranked in numpy
+    from scipy.stats import gmean
+
+    seeds = [np.load(f"{ranks_out}.seed{i}.npy") for i in (0, 1)]
+    ens = np.load(ranks_out)
+    require(ens.shape == (L, n, n) and not np.array_equal(ens, seeds[0]),
+            f"ensemble ranks: shape {ens.shape} or equal to seed 0's")
+    with np.errstate(divide="ignore"):
+        g = np.asarray(gmean(np.stack(seeds), axis=0), np.float32)
+    lo = np.tril_indices(n, -1)
+    for l in range(L):
+        require(np.array_equal(ens[l][lo], np_rank_lower(g[l]))
+                and np.array_equal(ens[l], ens[l].T),
+                f"ensemble ranks of outcome {l} differ from the numpy "
+                "re-rank of the seeds' gmean")
+    # the triple probabilities against the exported sigmoid-mean scores
+    scores = np.load(scores_out, mmap_mode="r")
+    want = [scores[l, a, b] for l, a, b in
+            (map(int, t.split(":")) for t in ENSEMBLE_TRIPLES)]
+    triple_err = float(np.abs(np.asarray(probs) - want).max())
+    require(triple_err <= 1e-5 and np.isfinite(scores).all()
+            and ((0 < np.asarray(probs)) & (np.asarray(probs) < 1)).all(),
+            f"triple probabilities differ from the scores by {triple_err}")
+    del scores, seeds, ens, g
+    # without --keep_seed_ranks: the seed files gone, and a rank tensor
+    # equal to the first run's when the embeddings are (the card's KG
+    # scatters sum in an order that can change between runs), else one
+    # of the right layout
+    again = str(WORK / "ranks_again.npy")
+    cli_predict.main(argv + ["--export_ranks", again, "--export_embeddings",
+                             str(WORK / "z_again.npy")])
+    r1, r2 = np.load(ranks_out), np.load(again)
+    same_z = np.array_equal(np.load(WORK / "z.npy"),
+                            np.load(WORK / "z_again.npy"))
+    if same_z:
+        require(np.array_equal(r2, r1),
+                "the ensemble ranks changed without --keep_seed_ranks")
+    levels = np_rank_levels(n * (n - 1) // 2)
+    for r in r2:
+        require(np.array_equal(np.sort(r[lo]), levels)
+                and np.array_equal(r, r.T) and not np.diagonal(r).any(),
+                "the second run's ensemble ranks are not a rank tensor")
+    rerun_diff = float(np.abs(r2 - r1).max())
+    del r1, r2
+    left = sorted(p.name for p in WORK.glob("ranks_again.npy.seed*"))
+    kept = sorted(p.name for p in WORK.glob("ranks.npy.seed*"))
+    require(not left and kept == ["ranks.npy.seed0.npy",
+                                  "ranks.npy.seed1.npy"],
+            f"seed files: {left} left without --keep_seed_ranks, {kept} "
+            "kept with it")
+    emit({"phase": "predict_ensemble", "shrink": ENSEMBLE_SHRINK,
+          "drugs": n, "outcomes": L, "seeds": 2,
+          "label_chunk": ENSEMBLE_CHUNK, "launches": counts, "cli_s": t_cli,
+          "triple_probs": [float(p) for p in probs],
+          "triple_max_abs_err": triple_err,
+          "rerun_same_embeddings": same_z,
+          "rerun_max_abs_rank_diff": rerun_diff})
+    shutil.rmtree(WORK)
+    return counts
 
 
 # ------------------------------------------------------------ training
@@ -604,12 +863,12 @@ def phase_train_small():
     through K2 against those through the plain backward (within 1e-4 of
     each tensor's largest: K2 and index_add_ sum the same rows in another
     order)."""
-    ds, _ = make_split_dataset(seed=3)
+    ds, splits = make_split_dataset(seed=3)
     cfg = flagship_config(ds.num_labels, dropout=False)
     model = random_model(cfg, ds, seed=1)
     runs = {"cpu": ("cpu", True, 3), "cuda": ("cuda", True, 3),
             "cuda_plain_bwd": ("cuda", False, 1)}
-    losses, grads, launches = {}, {}, {}
+    losses, grads, launches, evals = {}, {}, {}, {}
     for name, (dev, src_sort, steps) in runs.items():
         batch, kg = DDICollator(ds, split="train", seed=0, device=dev,
                                 kg_src_sort=src_sort)()
@@ -624,6 +883,11 @@ def phase_train_small():
                                for k, p in trainer.model.named_parameters()
                                if "kg_encoder" in k}
         launches[name] = read_launches()
+        if steps == 3:  # the Evaluator's val sweep after the 3 steps
+            val = DDICollator(ds, split="val", seed=0, device=dev)(
+                splits["val"], build_kg=False)[0]
+            ev = Evaluator(trainer.model, cfg.finetune_mode)
+            evals[name] = (ev.evaluate_ft(val, kg, "val"), ev.best_metrics)
     n_types = len(ds.kg_edge_indices)
     per_step = k2_launches_per_step(list(ds.kg_edge_indices),
                                     cfg.model.encoder.hgt.num_layers)
@@ -647,33 +911,53 @@ def phase_train_small():
                 f"train_small: HGT gradient {k} through K2 differs from "
                 f"the plain backward by {err}")
         grad_err = max(grad_err, err / max(ref.abs().max().item(), 1e-30))
+    # the val metrics of the card's model against the CPU's, within 1e-4
+    (key_g, best_g), (key_c, best_c) = evals["cuda"], evals["cpu"]
+    require(np.isfinite(key_c) and sorted(best_g) == sorted(best_c),
+            f"train_small: val key {key_c} or metric names differ")
+    metric_err = abs(key_g - key_c)
+    for k, want in best_c.items():
+        got = best_g[k]
+        require((np.isnan(got) and np.isnan(want))
+                or abs(got - want) <= 1e-4,
+                f"train_small: val metric {k} on the card {got} against "
+                f"{want} on the CPU")
+        if not np.isnan(want):
+            metric_err = max(metric_err, abs(got - want))
     emit({"phase": "train_small", "drugs": ds.num_drugs,
           "outcomes": ds.num_labels, "kg_edge_types": n_types,
           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
           "max_rel_loss_err_vs_cpu": loss_err,
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
+          "val_key_cuda": key_g, "val_key_cpu": key_c,
+          "max_abs_val_metric_err_vs_cpu": metric_err,
           "launches": launches})
 
 
 def train_argv(memory_flags, epochs: int, save_dir: Path,
-               seed: int = 0) -> list:
+               seed: int = 0, evaluate_interval: int = 0) -> list:
     """The training CLI's arguments at the flagship configuration on the
-    reference scale divided by TRAIN_SHRINK."""
+    reference scale divided by TRAIN_SHRINK; with an evaluate_interval,
+    also the test pass."""
     return config_overrides(flagship_config(NUM_LABELS)) + [
         *memory_flags, "--platform", "cuda", "--synthetic_scale",
         "--synthetic_scale_shrink", str(TRAIN_SHRINK),
         "--finetune_mode", "str_random_sample", "--label_chunk", "64",
-        "--num_epochs", str(epochs), "--evaluate_interval", "0",
+        "--num_epochs", str(epochs),
+        "--evaluate_interval", str(evaluate_interval),
+        *(["--test"] if evaluate_interval else []),
         "--seed", str(seed), "--save_dir", str(save_dir)]
 
 
 def phase_training():
     """The training CLI at the flagship configuration on the reference
-    scale divided by TRAIN_SHRINK, with TRAIN_MEMORY_FLAGS."""
+    scale divided by TRAIN_SHRINK, with TRAIN_MEMORY_FLAGS, one
+    evaluation sweep on the val split and the test pass."""
     save_dir = WORK / "train"
     if save_dir.exists():
         shutil.rmtree(save_dir)
-    argv = train_argv(TRAIN_MEMORY_FLAGS, TRAIN_EPOCHS, save_dir)
+    argv = train_argv(TRAIN_MEMORY_FLAGS, TRAIN_EPOCHS, save_dir,
+                      evaluate_interval=TRAIN_EVAL_INTERVAL)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # counts start here
@@ -697,12 +981,25 @@ def phase_training():
     require(cfg.num_epochs == TRAIN_EPOCHS and all(
         torch.isfinite(t).all() for t in model.state_dict().values()),
             "the last_model checkpoint does not load as trained")
+    require(len(res["eval_keys"]) == 1 and np.isfinite(res["eval_keys"][0])
+            and res["best_epoch"] == TRAIN_EVAL_INTERVAL
+            and (save_dir / "best_model").exists()
+            and np.isfinite(res["test_keys"].get("test", np.nan)),
+            f"evaluation: keys {res['eval_keys']}, best epoch "
+            f"{res['best_epoch']}, test {res['test_keys']}")
+    best, _ = P.model_from_checkpoint(str(save_dir / "best_model"),
+                                      device="cuda")
+    require(all(torch.isfinite(t).all() for t in best.state_dict().values()),
+            "the best_model checkpoint does not load")
     emit({"phase": "training", "shrink": TRAIN_SHRINK,
           "memory_flags": TRAIN_MEMORY_FLAGS,
           "drugs": NUM_DRUGS // TRAIN_SHRINK,
           "outcomes": model.decoder.weight.shape[0],
           "epochs": TRAIN_EPOCHS, "launches": counts,
           "losses": res["losses"], "epoch_s": res["epoch_seconds"],
+          "evaluate_interval": TRAIN_EVAL_INTERVAL,
+          "eval_s": res["eval_seconds"], "val_key_auprc": res["eval_keys"],
+          "test_s": res["test_seconds"], "test_key_auprc": res["test_keys"],
           "data_build_s": res["data_seconds"], "cli_s": t_cli,
           "peak_device_mem_gb": peak})
     shutil.rmtree(save_dir)
@@ -796,14 +1093,19 @@ def main(argv) -> int:
     k1_checks = phase_kernels()
     k2_checks = phase_k2_kernels()
     phase_small()
-    serving = phase_serving()
+    serving, model, z = phase_serving()
+    paths = {"serving": serving, "ranks": phase_ranks(model, z)}
+    del model, z
+    paths["predict_ensemble"] = phase_predict_ensemble()
     phase_train_small()
-    training = phase_training()
+    paths["training"] = phase_training()
 
-    def entry(name, source, replaces, launches, checks, shape_keys):
+    def entry(name, source, replaces, checks, shape_keys):
         timed = [r for r in checks if "ms" in r]
+        by_path = {p: c[name] for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": timed[-1]["max_abs_err"],
                 "ms": timed[-1]["ms"], "plain_ms": timed[-1]["plain_ms"],
                 "bound_ms": timed[-1]["bound_ms"],
@@ -813,17 +1115,16 @@ def main(argv) -> int:
                 "timings": timed}
 
     # K1: timed last at the all-pairs bench shape, bf16 in and out, and
-    # launched on the serving path; K2: timed last at the training run's
-    # largest edge type, at the shape that run gives it, and launched on
-    # the training path
+    # launched on the serving, rank and ensemble paths; K2: timed last at
+    # the training run's largest edge type, at the shape that run gives
+    # it, and launched on the training path. `launches` sums the paths,
+    # each counted from 0 just before it and read just after
     emit({"kernels": [
         entry("bilinear_scores", "madrigal_tpu_torch/csrc/bilinear.cu",
-              "madrigal_tpu/ops/bilinear_pallas.py:35",
-              serving["bilinear_scores"], k1_checks,
+              "madrigal_tpu/ops/bilinear_pallas.py:35", k1_checks,
               ("L", "M", "N", "compute", "out")),
         entry("sorted_segment_sum", "madrigal_tpu_torch/csrc/segment_sum.cu",
-              "madrigal_tpu/ops/segment_pallas.py:62",
-              training["sorted_segment_sum"], k2_checks,
+              "madrigal_tpu/ops/segment_pallas.py:62", k2_checks,
               ("edge_type", "shrink", "E", "E_real", "N", "W", "in"))]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,21 @@
 """DDI finetune entry point, stage 3 (port of `madrigal_tpu/cli/train_ddi.py`;
 reference train_ddi_batch.py:419-518): full-batch training with
-per-epoch mask resampling, a `last_model` checkpoint, and `--resume`.
+per-epoch mask resampling, an evaluation sweep every `evaluate_interval`
+epochs on the held-out splits (`Evaluator`, eval/evaluate.py) that keeps
+the `best_model` / `best_within_model` checkpoints and stops early after
+`--patience` sweeps without a gain, a `last_model` checkpoint,
+`--resume`, and with `--test` a final test-split sweep of the best model.
 
 Usage:
   python -m madrigal_tpu_torch.cli.train_ddi --synthetic --num_epochs 50 \\
-      --finetune_mode str_random_sample --evaluate_interval 0
+      --finetune_mode str_random_sample --evaluate_interval 10 --test
   (add --platform cpu to run without a card)
 
 It takes the JAX CLI's flags. Not ported yet, and raising
-NotImplementedError before training starts: the evaluation sweep (an
-`--evaluate_interval` that reaches an evaluation epoch), `--test`,
-`--patience`, `--checkpoint` (a stage-2 warm start), `--all_train` and
-`--data_dir`. The memory flags act as in the JAX package:
+NotImplementedError before training starts: `--checkpoint` (a stage-2
+warm start), `--all_train` and `--data_dir`. `--eval_types` narrows
+every sweep to the given eval types. The memory flags act as in the JAX
+package:
 `--fusion_remat` / `--fusion_remat_policy` rematerialize the fusion
 transformer, `hgt.remat_edge_types` (`--set`; `--no_hgt_remat` turns it
 off) each HGT edge type's messages, and `--fusion_chunk` chunks the
@@ -41,8 +45,6 @@ from .common import (
 )
 
 _UNPORTED = {
-    "test": "the evaluation sweep (Evaluator, eval/metrics.py)",
-    "patience": "the evaluation sweep (Evaluator, eval/metrics.py)",
     "checkpoint": "stage-2 modules (the contrastive-pretrain warm start)",
     "all_train": "reference-format data loading (data/datasets.py)",
     "data_dir": "reference-format data loading (data/datasets.py)",
@@ -57,12 +59,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--split_method", type=str,
                    default="split_by_triplets")
     p.add_argument("--test", action="store_true",
-                   help="final test-split evaluation (not ported yet)")
+                   help="final test-split evaluation with the best model"
+                        " (reference predict.test analog)")
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--warmup_epochs", type=int, default=None)
     p.add_argument("--evaluate_interval", type=int, default=None,
-                   help="epochs between evaluation sweeps (not ported "
-                        "yet: 0 or one that no epoch reaches)")
+                   help="epochs between evaluation sweeps (0: none)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="CL-pretrain checkpoint to warm-start encoders "
                         "from (not ported yet)")
@@ -74,8 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint of this CLI to resume from (weights, "
                         "batch statistics, optimizer state, epoch)")
     p.add_argument("--patience", type=int, default=None,
-                   help="early-stopping patience (not ported yet)")
-    p.add_argument("--eval_types", type=str, default=None)
+                   help="early-stopping patience in evaluation sweeps on "
+                        "the val key metric (off when unset)")
+    p.add_argument("--eval_types", type=str, default=None,
+                   help="comma-separated eval-type override; default sweeps "
+                        "the full per-split SPLIT_EVAL_TYPES lists "
+                        "(reference evaluate.py:39-247)")
     p.add_argument("--frozen", action="store_true",
                    help="freeze the encoder; train the decoder only")
     p.add_argument("--label_chunk", type=int, default=None,
@@ -150,27 +156,33 @@ def build_config(args: argparse.Namespace, num_labels: int) -> TrainConfig:
 
 
 def _load_train_data(args, device):
-    """(dataset with the train rows, train collator): the reference-scale
-    data split 80/10/10 by rows and collated against the full drug table,
-    or the small synthetic dataset's train split."""
+    """(dataset with the train rows, train collator, {split: rows}): the
+    reference-scale data split 80/10/10 by rows (val, test, train) and
+    collated against the full drug table, or the small synthetic
+    dataset's split family."""
     from ..data.collate import DDICollator
     from ..data.synthetic import make_split_dataset
 
     if args.synthetic_scale:
         ds = reference_scale_dataset(args)
-        perm = np.random.RandomState(args.seed).permutation(len(ds.edge_df))
-        ds.edge_df = ds.edge_df.take(perm[2 * (len(perm) // 10):])
+        df = ds.edge_df
+        perm = np.random.RandomState(args.seed).permutation(len(df))
+        n_hold = len(df) // 10
+        splits = {"val": df.take(perm[:n_hold]),
+                  "test": df.take(perm[n_hold:2 * n_hold])}
+        ds.edge_df = df.take(perm[2 * n_hold:])
         return ds, DDICollator(ds, split="train", seed=args.seed,
                                device=device,
                                kg_src_sort=not args.no_src_mxu,
-                               drug_table_cache={}, full_drug_table=True)
-    ds, _ = make_split_dataset(
+                               drug_table_cache={},
+                               full_drug_table=True), splits
+    ds, splits = make_split_dataset(
         num_drugs=args.synthetic_drugs, num_labels=args.synthetic_labels,
         num_edges=args.synthetic_edges, split_method=args.split_method,
         seed=args.seed)
     return ds, DDICollator(ds, split="train", seed=args.seed, device=device,
                            kg_src_sort=not args.no_src_mxu,
-                           drug_table_cache={})
+                           drug_table_cache={}), splits
 
 
 def _sync(device: torch.device) -> None:
@@ -180,7 +192,11 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Train; returns {"losses": per-epoch loss dicts, "epoch_seconds",
-    "data_seconds", "checkpoint": the last_model path}."""
+    "data_seconds", "checkpoint": the last_model path, "best_key",
+    "best_epoch", "best_within_key", "best_within_epoch", "eval_seconds"
+    and "eval_keys" (per sweep), "stopped_epoch" (None unless stopped
+    early), "test_keys" ({split: key metric of the best model}) and
+    "test_seconds"}."""
     args = build_parser().parse_args(argv)
     for flag, item in _UNPORTED.items():
         if getattr(args, flag):
@@ -188,9 +204,13 @@ def main(argv=None) -> dict:
                 f"--{flag} is not ported yet (ROADMAP: {item})")
     device = setup_platform(args)
 
+    from ..data.collate import DDICollator
     from ..data.kg import kg_schema
+    from ..eval.evaluate import Evaluator
+    from ..eval.predict import model_from_checkpoint
     from ..models.encoder import build_model, init_weights
     from ..train.checkpoint import (
+        EarlyStopping,
         check_finite_loss,
         load_checkpoint,
         load_train_state,
@@ -204,18 +224,11 @@ def main(argv=None) -> dict:
     mlog = MetricLogger(args.save_dir, run_name="train_ddi")
 
     t0 = time.perf_counter()
-    ds, coll = _load_train_data(args, device)
+    ds, coll, splits = _load_train_data(args, device)
     cfg = build_config(args, ds.num_labels)
-    start_epoch, opt_state = 0, None
+    start_epoch, opt_state, extra = 0, None, {}
     if args.resume:
-        start_epoch, opt_state, _ = load_train_state(args.resume)
-    interval = cfg.evaluate_interval
-    if interval > 0 and any(e > 0 and e % interval == 0
-                            for e in range(start_epoch, cfg.num_epochs)):
-        raise NotImplementedError(
-            f"--evaluate_interval {interval} reaches an evaluation epoch; "
-            "the evaluation sweep is not ported yet (ROADMAP: Evaluator "
-            "and eval/metrics.py); pass --evaluate_interval 0")
+        start_epoch, opt_state, extra = load_train_state(args.resume)
     logger.info(f"config:\n{config_lib.dumps(cfg)}")
 
     batch, kg = coll()
@@ -226,14 +239,95 @@ def main(argv=None) -> dict:
     if args.resume:
         model.load_state_dict(load_checkpoint(args.resume)[0], strict=True)
     trainer = FinetuneTrainer(cfg, batch, kg, model.to(device))
+    # restore the best-model tracking, so that the first sweep after a
+    # resume cannot overwrite a better best_model from before it
+    best_key = float(extra.get("best_key", -1e8))
+    best_within_key = float(extra.get("best_within_key", -1e8))
+    best_epoch = extra.get("best_epoch")
+    best_within_epoch = extra.get("best_within_epoch")
     if args.resume:
         trainer.load_training_state(opt_state, start_epoch)
-        logger.info(f"resumed from {args.resume} at epoch {start_epoch}")
+        logger.info(f"resumed from {args.resume} at epoch {start_epoch} "
+                    f"(best so far {best_key:.4f} @ {best_epoch})")
+
+    evaluator = Evaluator(trainer.model, cfg.finetune_mode, task=cfg.task,
+                          logger=logger)
+    eval_types = ([t for t in args.eval_types.split(",") if t]
+                  if args.eval_types else None)
+
+    # the eval and test collators share the train collator's drug-table
+    # cache and score against the train `kg` (the graph does not depend on
+    # the split); val batches are built once here, test batches only in
+    # the --test block
+    def _eval_collator(name):
+        return DDICollator(ds, split=name, seed=args.seed, device=device,
+                           drug_table_cache=coll.drug_table_cache,
+                           full_drug_table=coll.full_drug_table)
+
+    eval_batches, test_dfs = {}, {}
+    for name, df in splits.items():
+        if name == "train" or not len(df):
+            continue
+        if name.startswith("test"):
+            test_dfs[name] = df
+        else:
+            eval_batches[name] = _eval_collator(name)(df, build_kg=False)[0]
+    # selection priority: plain 'val' wins when it coexists with
+    # val_between (deterministic, not dict insertion order)
+    val_splits = sorted([n for n in eval_batches if n.startswith("val")],
+                        key=lambda n: (n != "val", n))
     _sync(device)
     data_seconds = time.perf_counter() - t0
     logger.info(f"data and model on {device}: {data_seconds:.3f} s")
 
-    history, epoch_seconds = [], []
+    stopper = EarlyStopping(args.patience) if args.patience else None
+
+    def tracking_extra():
+        return {"best_key": best_key, "best_within_key": best_within_key,
+                "best_epoch": best_epoch,
+                "best_within_epoch": best_within_epoch}
+
+    def run_eval_sweep(epoch):
+        """The per-split eval-type sweep (reference evaluate.py:39-247);
+        saves best_model / best_within_model on a gain. Returns the val
+        key metric."""
+        nonlocal best_key, best_within_key, best_epoch, best_within_epoch
+        key = within_key = None
+        if val_splits:
+            for name in val_splits:
+                k = evaluator.evaluate_ft(eval_batches[name], kg, name,
+                                          eval_types=eval_types)
+                mlog.log({f"{name}_key_auprc": k}, step=epoch)
+                if "within" in name:
+                    within_key = k
+                elif key is None:  # first in priority order ('val' first)
+                    key = k
+            if key is None:  # only within splits exist
+                key = within_key
+        else:
+            key = evaluator.evaluate_ft(
+                batch, kg, "train",
+                eval_types=eval_types or ["full_full", "str_str"])
+            mlog.log({"train_key_auprc": key}, step=epoch)
+        if key is not None and key > best_key:
+            best_key, best_epoch = key, epoch
+            save_checkpoint(os.path.join(args.save_dir, "best_model"),
+                            trainer.model, cfg, epoch=epoch,
+                            opt_state=trainer.training_state(),
+                            extra=tracking_extra())
+            logger.info(f"new best auprc {key:.4f} @ epoch {epoch}")
+        if within_key is not None and within_key > best_within_key:
+            best_within_key, best_within_epoch = within_key, epoch
+            save_checkpoint(os.path.join(args.save_dir, "best_within_model"),
+                            trainer.model, cfg, epoch=epoch,
+                            opt_state=trainer.training_state())
+            logger.info(
+                f"new best within auprc {within_key:.4f} @ epoch {epoch}")
+        return key
+
+    path = os.path.join(args.save_dir, "last_model")
+    history, epoch_seconds, eval_seconds, eval_keys = [], [], [], []
+    stopped_epoch = None
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.perf_counter()
         losses = check_finite_loss(trainer.train_epoch())
@@ -246,14 +340,63 @@ def main(argv=None) -> dict:
                     f"({epoch_seconds[-1]:.3f} s)",
                     extra={"phase": f"epoch_{epoch + 1}",
                            "seconds": epoch_seconds[-1]})
+        # evaluate_interval <= 0: no sweep during the run
+        if (cfg.evaluate_interval > 0 and epoch > 0
+                and epoch % cfg.evaluate_interval == 0):
+            t0 = time.perf_counter()
+            key = run_eval_sweep(epoch)
+            eval_seconds.append(time.perf_counter() - t0)
+            eval_keys.append(key)
+            logger.info(f"evaluation sweep @ epoch {epoch}: key {key:.4f} "
+                        f"({eval_seconds[-1]:.3f} s)",
+                        extra={"phase": f"eval_{epoch}",
+                               "seconds": eval_seconds[-1]})
+            # resumable snapshot (weights, optimizer state, epoch)
+            save_checkpoint(path, trainer.model, cfg, epoch=epoch + 1,
+                            opt_state=trainer.training_state(),
+                            extra=tracking_extra())
+            if stopper is not None and stopper(key):
+                logger.info(
+                    f"early stop @ epoch {epoch}: no val improvement in "
+                    f"{args.patience} eval intervals")
+                stopped_epoch = epoch
+                break
 
-    path = os.path.join(args.save_dir, "last_model")
-    save_checkpoint(path, trainer.model, cfg, epoch=cfg.num_epochs,
-                    opt_state=trainer.training_state())
-    logger.info(f"wrote {path}")
+    if stopped_epoch is None:
+        save_checkpoint(path, trainer.model, cfg, epoch=cfg.num_epochs,
+                        opt_state=trainer.training_state(),
+                        extra=tracking_extra())
+    logger.info(f"wrote {path}; best auprc {best_key:.4f} @ epoch "
+                f"{best_epoch}; best within {best_within_key:.4f} @ epoch "
+                f"{best_within_epoch}")
+
+    test_keys, test_seconds = {}, None
+    best_path = os.path.join(args.save_dir, "best_model")
+    if args.test and test_dfs and os.path.exists(best_path):
+        # reference predict.test analog: reload the best checkpoint and run
+        # the test-split sweep (predict.py:15-170)
+        t0 = time.perf_counter()
+        best, _ = model_from_checkpoint(best_path, device=device)
+        test_eval = Evaluator(best, cfg.finetune_mode, task=cfg.task,
+                              logger=logger)
+        for name in sorted(test_dfs):
+            test_batch = _eval_collator(name)(test_dfs[name],
+                                              build_kg=False)[0]
+            test_keys[name] = test_eval.evaluate_ft(
+                test_batch, kg, name, eval_types=eval_types)
+            logger.info(f"{name} key auprc (best model): "
+                        f"{test_keys[name]:.4f}")
+            mlog.log({f"{name}_key_auprc_best": test_keys[name]})
+        test_seconds = time.perf_counter() - t0
     mlog.finish()
     return {"losses": history, "epoch_seconds": epoch_seconds,
-            "data_seconds": data_seconds, "checkpoint": path}
+            "data_seconds": data_seconds, "checkpoint": path,
+            "best_key": best_key, "best_epoch": best_epoch,
+            "best_within_key": best_within_key,
+            "best_within_epoch": best_within_epoch,
+            "eval_seconds": eval_seconds, "eval_keys": eval_keys,
+            "stopped_epoch": stopped_epoch, "test_keys": test_keys,
+            "test_seconds": test_seconds}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@ reference madrigal/evaluate/predict.py):
     into a host array or np.memmap, through kernel K1 (`ops/bilinear.py`)
     -- the CUDA kernel for a model on the card, its plain version on the
     CPU;
-  * `score_triples_for_pairs`: (outcome, drugA, drugB) lookups.
+  * `score_triples_for_pairs`: (outcome, drugA, drugB) lookups;
+  * `make_predictions`: one batch's sigmoid triple scores under an eval
+    type's masks;
+  * `ensemble_sigmoid_scores_all_pairs` / `ensemble_sigmoid_mean`: the
+    multi-checkpoint sigmoid-mean ensembles (predict.py:466-499), the
+    former through K1.
 
 Functions take an explicit `device` where they create tensors; `None`
 means CUDA and raises without a card. Each serving phase logs its wall
@@ -16,10 +21,11 @@ time at INFO, with `phase` and `seconds` attached to the log record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from ..models.encoder import (
 )
 from ..ops.bilinear import bilinear_scores
 from ..train.checkpoint import load_checkpoint
+from .masks import get_evaluate_masks
 
 logger = logging.getLogger(__name__)
 
@@ -161,3 +168,85 @@ def score_triples_for_pairs(
                           device=dev)
     out = model.decoder.triples(zt[idx[:, 1]], zt[idx[:, 2]], idx[:, 0])
     return out.cpu().numpy()
+
+
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """The model in eval mode and without autograd for the block, then
+    back in the mode it was in (the JAX package's train=False)."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield model
+    finally:
+        model.train(was_training)
+
+
+def make_predictions(model: MadrigalMultilabel, batch, kg,
+                     eval_type: str, finetune_mode: str) -> np.ndarray:
+    """Sigmoid scores for one collated batch under an eval type's masks
+    (predict.py:173-378 make_predictions)."""
+    masks_head, masks_tail = get_evaluate_masks(
+        batch.head.masks.cpu().numpy(), batch.tail.masks.cpu().numpy(),
+        eval_type, finetune_mode)
+    dev = batch.head.masks.device
+    head = dataclasses.replace(batch.head,
+                               masks=torch.as_tensor(masks_head, device=dev))
+    tail = dataclasses.replace(batch.tail,
+                               masks=torch.as_tensor(masks_tail, device=dev))
+    with eval_mode(model):
+        logits = model.score_triples(head, tail, kg, batch.head_idx,
+                                     batch.tail_idx, batch.labels)
+    return torch.sigmoid(logits).cpu().numpy()
+
+
+@torch.no_grad()
+def ensemble_sigmoid_scores_all_pairs(
+    seeds,
+    label_chunk: int = 32,
+    out: Optional[np.ndarray] = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> np.ndarray:
+    """[L, N, N] sigmoid-mean ensemble of per-seed all-pairs scores
+    (reference predict.py:466-499), streamed per label chunk so `out` may
+    be an np.memmap.
+
+    seeds: (model, z) per checkpoint, all with the same L and N (the
+    published 5-seed protocol retrains one architecture under other
+    seeds). Each seed's chunk of scores is one K1 call on the models'
+    device; the sigmoids are summed in seed order and divided by the
+    number of seeds."""
+    dev = _model_device(seeds[0][0])
+    w_syms = [decoder_weight(m) for m, _ in seeds]
+    zs = [torch.as_tensor(np.asarray(z, np.float32)).to(dev)
+          for _, z in seeds]
+    L, n = w_syms[0].shape[0], zs[0].shape[0]
+    if out is None:
+        out = np.empty((L, n, n), np.float32)
+    for s in range(0, L, label_chunk):
+        e = min(s + label_chunk, L)
+        acc = None
+        for z, w in zip(zs, w_syms):
+            p = torch.sigmoid(bilinear_scores(
+                z, z, w[s:e].contiguous(), out_dtype=torch.float32,
+                compute_dtype=compute_dtype))
+            acc = p if acc is None else acc.add_(p)
+        out[s:e] = acc.div_(len(seeds)).cpu().numpy()
+    return out
+
+
+def ensemble_sigmoid_mean(
+    score_sets: Iterable[np.ndarray], scores_are_logits: bool = True
+) -> np.ndarray:
+    """Multi-checkpoint ensembling: mean of sigmoid scores
+    (predict.py:466-499).
+
+    `scores_are_logits` is explicit: value-range sniffing would treat a
+    logit set that happens to land in [0, 1] as probabilities. Pass False
+    when the inputs are already sigmoided (e.g. make_predictions output).
+    """
+    sets = [np.asarray(s) for s in score_sets]
+    if scores_are_logits:
+        sets = [1.0 / (1.0 + np.exp(-s)) for s in sets]
+    return np.mean(sets, axis=0)

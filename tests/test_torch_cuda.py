@@ -10,11 +10,17 @@ Tolerances: K1 with f32 compute and output within 1e-4 of max|plain|
 1e-2 (a bf16 rounding of z_head . W_l or of the score can land on the
 other side of its boundary). K2 within 1e-5 of max|plain| (the same f32
 sums in another order; bf16 and f16 rows widen to f32 exactly).
+Ranks on the card equal the port's CPU ranks of the same scores exactly
+(the same stable order, the same float32 arithmetic); the sigmoid-mean
+ensemble of K1 scores is within 1e-5 of the CPU path's.
 """
 import numpy as np
 import pytest
 import torch
 
+from madrigal_tpu_torch.eval import predict as tp
+from madrigal_tpu_torch.eval import ranks as tr
+from madrigal_tpu_torch.models.decoder import BilinearDDIScorer
 from madrigal_tpu_torch.ops import bilinear as tb
 from madrigal_tpu_torch.ops import segment_sorted as ts
 from madrigal_tpu_torch.ops.gather import gather_rows_sorted
@@ -146,3 +152,72 @@ def test_segment_sum_kernel_refuses_what_it_does_not_take(cuda):
         ts.sorted_segment_sum(data, starts.long(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         ts.sorted_segment_sum(data.t().contiguous().t(), starts, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 300, 6000])
+@pytest.mark.parametrize("stable,compact,ties", [
+    (True, None, False), (True, True, False), (False, None, False),
+    (True, None, True), (True, True, True)])
+def test_ranks_on_card_equal_cpu_ranks(cuda, n, stable, compact, ties):
+    """At n = 6000, m = n(n-1)/2 passes 2^24: the float32 rounding of the
+    ranks is checked there too. Ties only under stable sorts (an unstable
+    sort may order equal scores either way)."""
+    rng = np.random.RandomState(n)
+    if ties:
+        s = np.round(rng.randn(n, n) * 2).astype(np.float32) / 2
+    else:  # n^2 distinct floats: distinct bit patterns from 1.0 up
+        s = (np.int32(0x3F800000) + rng.permutation(n * n).astype(np.int32)
+             ).view(np.float32).reshape(n, n)
+    got = tr.normalized_rank_matrix(torch.from_numpy(s).to(cuda),
+                                    stable=stable, compact=compact)
+    want = tr.normalized_rank_matrix(torch.from_numpy(s), stable=stable,
+                                     compact=compact)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_rank_tensor_on_card_runs_k1_and_equals_cpu_ranks(cuda):
+    rng = np.random.RandomState(1)
+    n, L = 700, 5
+    z = rng.randn(n, 128).astype(np.float32)
+    w = (rng.randn(L, 128, 128) / np.sqrt(128)).astype(np.float32)
+    w = np.triu(w) + np.transpose(np.triu(w, 1), (0, 2, 1))
+    before = tb.bilinear_scores.launches
+    got = tr.rank_tensor(z, w, chunk=2, device=cuda)
+    assert tb.bilinear_scores.launches == before + 3  # ceil(5 / 2) chunks
+    zc, wc = torch.from_numpy(z).to(cuda), torch.from_numpy(w).to(cuda)
+    for l in range(L):
+        scores = tb.bilinear_scores(zc, zc, wc[l:l + 1], torch.float32,
+                                    torch.float32)[0].cpu()
+        want = tr.normalized_rank_matrix(scores)
+        assert torch.equal(torch.from_numpy(got[l]), want)
+
+
+class _Decoder(torch.nn.Module):
+    """What ensemble_sigmoid_scores_all_pairs reads of a model."""
+
+    def __init__(self, w):
+        super().__init__()
+        self.decoder = BilinearDDIScorer(*w.shape)
+        with torch.no_grad():
+            self.decoder.weight.copy_(torch.from_numpy(w))
+
+
+@pytest.mark.cuda
+def test_ensemble_sigmoid_scores_on_card_match_cpu(cuda):
+    rng = np.random.RandomState(2)
+    n, L = 300, 7
+    seeds = [(rng.randn(L, 128, 128) / np.sqrt(128)).astype(np.float32)
+             for _ in range(3)]
+    zs = [rng.randn(n, 128).astype(np.float32) for _ in range(3)]
+    want = tp.ensemble_sigmoid_scores_all_pairs(
+        [(_Decoder(w), z) for w, z in zip(seeds, zs)], label_chunk=3)
+    before = tb.bilinear_scores.launches
+    got = tp.ensemble_sigmoid_scores_all_pairs(
+        [(_Decoder(w).to(cuda), z) for w, z in zip(seeds, zs)],
+        label_chunk=3)
+    assert tb.bilinear_scores.launches == before + 3 * 3  # seeds x chunks
+    assert got.shape == (L, n, n)
+    assert np.abs(got - want).max() <= 1e-5

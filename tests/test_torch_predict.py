@@ -7,11 +7,25 @@
     score_all_pairs and score_triples_for_pairs equal the port's (atol
     1e-5: the same f32 math, summed in another order).
   * The port's CLI runs end to end on the CPU from a port checkpoint.
-  * Flags this slice does not port raise NotImplementedError.
+  * With two checkpoints of the same weights in each package, the port's
+    CLI (--export_ranks, --export_scores, --export_embeddings, --triples,
+    --eval_type, --keep_seed_ranks, --ablation / --ablation_combos)
+    against `madrigal_tpu.cli.predict`: embeddings, sigmoid-mean scores
+    and triple probabilities within 1e-5; each seed's raw scores as in
+    the first bullet, and its ranks identical at
+    every pair whose score is further than max(1e-5, twice the largest
+    score difference) from every other score of its outcome, and the
+    ensemble ranks identical on every outcome where that holds for all
+    pairs of both seeds; the ablation table's subsets, labels and
+    positives equal (its metrics are held to JAX in test_torch_eval.py),
+    and equal to the port's library call. Without --keep_seed_ranks the
+    seed files are gone and the ranks the same.
+  * --sharded, the one flag not ported, raises NotImplementedError.
   * Without a card, entry points that were not asked for the CPU raise.
   * Importing the port (and chip_smoke.py) loads no JAX, flax, pandas or
     madrigal_tpu module, and chip_smoke.py fails without a card.
 """
+import json
 import os
 import shutil
 import subprocess
@@ -23,11 +37,13 @@ import pytest
 import torch
 
 from madrigal_tpu import config as j_config
+from madrigal_tpu.cli import predict as j_cli
 from madrigal_tpu.data import collate as j_collate
 from madrigal_tpu.data import synthetic as j_syn
 from madrigal_tpu.eval import predict as j_predict
 from madrigal_tpu.models.encoder import MadrigalMultilabel as JMultilabel
 from madrigal_tpu.models.encoder import init_multilabel
+from madrigal_tpu.train.checkpoint import save_checkpoint as j_save_checkpoint
 from madrigal_tpu_torch import config as t_config
 from madrigal_tpu_torch.cli import predict as t_cli
 from madrigal_tpu_torch.data import collate as t_collate
@@ -35,6 +51,7 @@ from madrigal_tpu_torch.data import synthetic as t_syn
 from madrigal_tpu_torch.data.kg import build_kg_batch, kg_schema
 from madrigal_tpu_torch.data.molgraph import pack_molecules
 from madrigal_tpu_torch.device import resolve_device
+from madrigal_tpu_torch.eval import ablation as t_ablation
 from madrigal_tpu_torch.eval import predict as t_predict
 from madrigal_tpu_torch.interop.from_flax import load_flax_weights
 from madrigal_tpu_torch.models.encoder import (
@@ -45,6 +62,7 @@ from madrigal_tpu_torch.models.encoder import (
 from madrigal_tpu_torch.ops.bilinear import bilinear_scores
 from madrigal_tpu_torch.train.checkpoint import save_checkpoint
 from test_torch_models import _perturb
+from test_torch_ranks import separated
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = dict(num_drugs=18, num_labels=6, num_edges=30, seed=5)
@@ -213,19 +231,134 @@ def test_only_training_builds_the_source_sorted_layout():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--export_ranks", "r.npy"], ["--eval_type", "full_full"],
-    ["--ablation", "a.json"], ["--sharded"], ["CKPT2"],
-    ["--platform", "tpu"]])
-def test_unported_flags_raise(served, extra):
+    ["--sharded", "--export_ranks", "r.npy"],
+    ["--sharded", "--eval_type", "full_full"],
+    ["--sharded", "--ablation", "a.json"], ["--sharded"],
+    ["--sharded", "CKPT2"], ["--platform", "tpu"]])
+def test_unported_flags_raise(served, extra, tmp_path):
+    """--sharded raises whatever it is combined with, before any output
+    is written."""
     argv = ["--checkpoint", served["path"]]
-    if extra == ["CKPT2"]:
+    if "CKPT2" in extra:
         argv.append(served["path"])
-    else:
-        argv += extra
+    argv += [str(tmp_path / a) if a.endswith((".npy", ".json")) else a
+             for a in extra if a != "CKPT2"]
     if "--platform" not in extra:
         argv += ["--platform", "cpu"]
     with pytest.raises(NotImplementedError):
         t_cli.main(argv + DATA_FLAGS)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.fixture(scope="module")
+def two_seeds(served, tmp_path_factory):
+    """Two checkpoints of the same weights in each package: the served
+    model's and a second seed's."""
+    s = served
+    d = tmp_path_factory.mktemp("seeds")
+    batch, _ = s["cj"](build_kg=False)
+    v2 = _perturb(init_multilabel(s["j_model"], jax.random.PRNGKey(1),
+                                  batch.head, batch.tail, s["kj"]),
+                  np.random.RandomState(1))
+    cfg = flagship_shaped(t_config)
+    model2 = MadrigalMultilabel(cfg.model.encoder, 6,
+                                *kg_schema(s["ct"].ds.kg_node_feats,
+                                           s["ct"].ds.kg_edge_indices))
+    load_flax_weights(model2, v2)
+    model2.eval()
+    t2 = str(d / "t2.pt")
+    save_checkpoint(t2, model2, cfg)
+    jpaths = []
+    for i, v in enumerate((s["v"], v2)):
+        jpaths.append(str(d / f"j{i}"))
+        j_save_checkpoint(jpaths[-1], v["params"], v.get("batch_stats", {}),
+                          flagship_shaped(j_config), epoch=1)
+    return dict(j=jpaths, t=[s["path"], t2], models=[s["model"], model2],
+                v=[s["v"], v2])
+
+
+ENSEMBLE_TRIPLES = ["0:1:2", "5:3:4", "2:0:17"]
+COMBOS = "str;str+kg+cv+tx"
+
+
+def test_two_checkpoint_cli_matches_jax(served, two_seeds, tmp_path):
+    s, seeds = served, two_seeds
+
+    def run(cli, pkg, ckpts, *extra):
+        out = tmp_path / pkg
+        out.mkdir(exist_ok=True)
+        res = cli.main(
+            ["--checkpoint", *ckpts, "--export_ranks", str(out / "r.npy"),
+             "--export_scores", str(out / "s.npy"),
+             "--export_embeddings", str(out / "z.npy"),
+             "--eval_type", "str+tx_full", "--label_chunk", "4",
+             "--triples", *ENSEMBLE_TRIPLES, *extra]
+            + DATA_FLAGS + ["--platform", "cpu"])
+        return res, out
+
+    probs_j, jd = run(j_cli, "jax", seeds["j"], "--keep_seed_ranks",
+                      "--ablation", str(tmp_path / "a_jax.json"),
+                      "--ablation_combos", COMBOS)
+    probs_t, td = run(t_cli, "port", seeds["t"], "--keep_seed_ranks",
+                      "--ablation", str(tmp_path / "a.json"),
+                      "--ablation_combos", COMBOS)
+    tol = dict(atol=1e-5, rtol=0)
+    z_j, z_t = np.load(jd / "z.npy"), np.load(td / "z.npy")
+    assert z_t.shape == (2, 18, 16)
+    np.testing.assert_allclose(z_t, z_j, **tol)
+    np.testing.assert_allclose(np.load(td / "s.npy"), np.load(jd / "s.npy"),
+                               **tol)
+    np.testing.assert_allclose(probs_t, probs_j, **tol)
+    assert ((probs_t > 0) & (probs_t < 1)).all()
+
+    # per-seed ranks where the scores are separated, and the ensemble on
+    # the outcomes where every pair of both seeds is
+    clean = np.ones(6, bool)
+    for i in range(2):
+        sc_j = j_predict.score_all_pairs(s["j_model"], seeds["v"][i],
+                                         z_j[i], label_chunk=4)
+        sc_t = t_predict.score_all_pairs(seeds["models"][i], z_t[i],
+                                         label_chunk=4)
+        np.testing.assert_allclose(sc_t, sc_j, atol=1e-5, rtol=1e-5)
+        err = np.abs(sc_t - sc_j).max()
+        sep = separated(sc_j, max(1e-5, 2 * err))
+        off_diag = ~np.eye(18, dtype=bool)
+        clean &= sep[:, off_diag].all(axis=1)
+        r_j = np.load(str(jd / "r.npy") + f".seed{i}.npy")
+        r_t = np.load(str(td / "r.npy") + f".seed{i}.npy")
+        np.testing.assert_array_equal(r_t[sep], r_j[sep])
+    assert clean.sum() >= 3
+    ens_t = np.load(td / "r.npy")
+    np.testing.assert_array_equal(ens_t[clean], np.load(jd / "r.npy")[clean])
+    assert not np.array_equal(ens_t, r_t)
+
+    # the ablation study on the first checkpoint: the protocol matches
+    # JAX's, the numbers the port's library call
+    with open(tmp_path / "a.json") as f:
+        table = json.load(f)
+    with open(tmp_path / "a_jax.json") as f:
+        table_j = json.load(f)
+    assert list(table) == list(table_j)
+    for combo, row in table_j.items():
+        assert list(table[combo]) == list(row)
+        for k in ("labels", "pos_samples"):
+            assert table[combo][k] == row[k]
+    batch, _ = s["ct"](build_kg=False)
+    lib = t_ablation.modality_ablation_study(
+        seeds["models"][0], batch, s["kt"], "str_random_sample",
+        combos=[tuple(c.split("+")) for c in COMBOS.split(";")])
+    assert list(table) == list(lib) == COMBOS.split(";")
+    for combo, row in lib.items():
+        for k, v in row.items():
+            np.testing.assert_array_equal(np.asarray(table[combo][k]),
+                                          np.asarray(v, np.float64))
+
+    # without --keep_seed_ranks: the same ranks, and no seed files left
+    run(t_cli, "port_nokeep", seeds["t"])
+    nd = tmp_path / "port_nokeep"
+    np.testing.assert_array_equal(np.load(nd / "r.npy"), ens_t)
+    assert sorted(os.listdir(nd)) == ["r.npy", "s.npy", "z.npy"]
+    assert os.path.exists(str(td / "r.npy") + ".seed1.npy")
 
 
 def test_entry_points_refuse_without_card(served):
@@ -271,10 +404,12 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     loaded = set(res.stdout.split())
-    assert len(loaded) >= 35  # every module was imported
+    assert len(loaded) >= 40  # every module was imported
     for m in ("cli.predict", "cli.train_ddi", "train.finetune",
               "train.optim", "train.losses", "train.masking",
-              "train.checkpoint", "ops.segment_sorted", "ops.gather"):
+              "train.checkpoint", "ops.segment_sorted", "ops.gather",
+              "eval.ranks", "eval.masks", "eval.metrics", "eval.evaluate",
+              "eval.ablation", "eval.predict"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 

@@ -379,14 +379,104 @@ def test_cli_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--test"], ["--patience", "2"], ["--checkpoint", "x"], ["--all_train"],
-    ["--evaluate_interval", "2"], ["--platform", "tpu"],
+    ["--data_dir", "x"], ["--set", "optim.optimizer=lars"],
+    ["--checkpoint", "x"], ["--all_train"],
+    ["--checkpoint", "x", "--use_pretrained_adaptor"], ["--platform", "tpu"],
     ["--set", "optim.optimizer=radam"]])
 def test_unported_training_flags_raise(tmp_path, extra):
     argv = CLI + ["--num_epochs", "3", "--save_dir", str(tmp_path)] + extra
     with pytest.raises(NotImplementedError):
         t_cli.main(argv)
     assert not os.path.exists(tmp_path / "last_model")
+
+
+def scripted_sweeps(monkeypatch, keys):
+    """Both packages' Evaluator.evaluate_ft return `keys` in turn for val
+    splits and 0.123 for test splits; returns the list of splits asked
+    for, per package."""
+    from madrigal_tpu.eval import evaluate as j_evaluate
+    from madrigal_tpu_torch.eval import evaluate as t_evaluate
+
+    calls = {"jax": [], "port": []}
+    seqs = {"jax": iter(keys), "port": iter(keys)}
+
+    def fake(pkg):
+        def evaluate_ft(self, *args, eval_types=None):
+            split = args[-1]
+            calls[pkg].append(split)
+            return 0.123 if split.startswith("test") else next(seqs[pkg])
+        return evaluate_ft
+
+    monkeypatch.setattr(j_evaluate.Evaluator, "evaluate_ft", fake("jax"))
+    monkeypatch.setattr(t_evaluate.Evaluator, "evaluate_ft", fake("port"))
+    return calls
+
+
+def test_cli_early_stopping_matches_jax(tmp_path, monkeypatch):
+    """The same sequence of val key metrics in both CLIs: best_model and
+    last_model at the same epochs, the same sweeps, and early stopping at
+    the same epoch (keys 0.5, 0.6, 0.55, 0.58 at epochs 1-4 with patience
+    1: best at 2, stop at 4)."""
+    from madrigal_tpu.cli import train_ddi as j_cli
+    from madrigal_tpu.train.checkpoint import load_checkpoint as j_load
+    from madrigal_tpu_torch.train.checkpoint import load_train_state
+
+    calls = scripted_sweeps(monkeypatch, [0.5, 0.6, 0.55, 0.58, 0.7, 0.8])
+    argv = [a for a in CLI] + ["--finetune_mode", "full_full",
+                               "--num_epochs", "7", "--patience", "1",
+                               "--test"]
+    argv[argv.index("--evaluate_interval") + 1] = "1"
+    j_cli.main(argv + ["--save_dir", str(tmp_path / "jax")])
+    res = t_cli.main(argv + ["--save_dir", str(tmp_path / "port")])
+    assert calls["port"] == calls["jax"] == ["val"] * 4 + ["test"]
+    assert res["stopped_epoch"] == 4 and res["best_epoch"] == 2
+    assert res["eval_keys"] == [0.5, 0.6, 0.55, 0.58]
+    assert res["test_keys"] == {"test": 0.123}
+    for name in ("best_model", "last_model"):
+        want = j_load(str(tmp_path / "jax" / name))[1]["epoch"]
+        got = load_train_state(str(tmp_path / "port" / name))[0]
+        assert got == want, name
+    assert load_train_state(str(tmp_path / "port" / "best_model"))[2][
+        "best_key"] == 0.6
+
+
+def test_cli_evaluation_sweep_and_resume(tmp_path, monkeypatch):
+    """The real sweep: --eval_types narrows it, best_model and the test
+    sweep are written and loadable, and a resume keeps the best-model
+    tracking of the run it resumes."""
+    from madrigal_tpu_torch.eval import evaluate as t_evaluate
+    from madrigal_tpu_torch.eval.predict import model_from_checkpoint
+
+    seen = []
+    real = t_evaluate.Evaluator.evaluate_ddi
+
+    def spy(self, batch, kg, eval_type, split):
+        seen.append((split, eval_type))
+        return real(self, batch, kg, eval_type, split)
+
+    monkeypatch.setattr(t_evaluate.Evaluator, "evaluate_ddi", spy)
+    argv = [a for a in CLI] + ["--eval_types", "full_full,str_str",
+                               "--test"]
+    argv[argv.index("--evaluate_interval") + 1] = "1"
+    first = t_cli.main(argv + ["--num_epochs", "3",
+                               "--save_dir", str(tmp_path / "a")])
+    assert len(first["eval_keys"]) == 2  # after epochs 1 and 2
+    assert all(np.isfinite(first["eval_keys"]))
+    assert first["best_key"] == max(first["eval_keys"])
+    assert set(seen) == {(sp, et) for sp in ("val", "test")
+                         for et in ("full_full", "str_str")}
+    assert np.isfinite(first["test_keys"]["test"])
+    model, _ = model_from_checkpoint(str(tmp_path / "a" / "best_model"),
+                                     device="cpu")
+    assert all(torch.isfinite(t).all() for t in model.state_dict().values())
+    with open(tmp_path / "a" / "train_ddi_metrics.jsonl") as f:
+        assert "val_key_auprc" in f.read()
+    resumed = t_cli.main(argv + ["--num_epochs", "4", "--resume",
+                                 first["checkpoint"],
+                                 "--save_dir", str(tmp_path / "a")])
+    assert resumed["best_key"] >= first["best_key"]
+    assert (resumed["best_epoch"] == first["best_epoch"]) == (
+        resumed["eval_keys"][0] <= first["best_key"])
 
 
 # ------------------------------------------- copies and smaller pieces
