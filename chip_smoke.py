@@ -38,15 +38,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
      the same model, with its own launches and its chunks checked;
   6. ranks: rank_tensor on the serving model for RANK_CHUNK outcomes at
      all 6,843 drugs (counts set to 0 before, read after); K1's scores
-     and the per-outcome rank timed apart; two outcomes against a numpy
-     float32 form of the JAX package's compiled formula, exactly, and
-     against the float64 offline path within 2.5e-7; every outcome's
-     layout; a tie case against the numpy stable formula, exactly;
+     and the per-outcome rank timed apart; every outcome's layout; two
+     outcomes against a numpy float32 form of the JAX package's compiled
+     formula, exactly, and against the float64 offline path within
+     2.5e-7, and a tie case against the numpy stable formula, exactly
+     (these references run on the host beside phases 7-9, and the
+     ranks line follows theirs);
   7. predict_ensemble: the serving CLI with two checkpoints at the
      reference scale / ENSEMBLE_SHRINK (counts set to 0 before, read
-     after) exporting ranks, sigmoid-mean scores and triple
-     probabilities, checked against the seed files, and once more
-     without --keep_seed_ranks;
+     after) exporting ranks, sigmoid-mean scores, the embeddings and
+     triple probabilities; from the embeddings, each seed's K1 scores
+     against the plain version, the scores against the plain sigmoid
+     mean, the ranks against numpy's gmean re-rank of each seed's numpy
+     ranks, and the seed files gone;
   8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
      masks, with the Evaluator's val metrics after them, and the card's
@@ -56,7 +60,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
      epochs with one evaluation sweep and the test pass, with every
      kernel's launch count set to 0 just before it and read just after.
 
-Standard output: one JSON line per phase, the `{"kernels": [...]}` line,
+Standard output: one JSON line per phase, a line of each phase's wall
+seconds, the `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
 writes only under `build/` in the checkout and imports no JAX.
 
@@ -302,6 +307,15 @@ def phase_kernels():
                                (5, 129, 1024), (6, 1, NUM_DRUGS),
                                (5, 63, 999))
                for o in (f32, bf16)]
+    # the ensemble CLI's calls: ENSEMBLE_CHUNK outcomes over all its
+    # drugs, and its last chunk's remainder
+    ens = reference_scale_kwargs(ENSEMBLE_SHRINK)
+    n_e, l_e = ens["num_drugs"], ens["num_labels"]
+    checks.append(k1_check(ENSEMBLE_CHUNK, n_e, n_e, f32, f32, seed=6,
+                           iters=21))
+    if l_e % ENSEMBLE_CHUNK:
+        checks.append(k1_check(l_e % ENSEMBLE_CHUNK, n_e, n_e, f32, f32,
+                               seed=6))
     # the shape score_all_pairs gives K1 in the serving phase, and the
     # all-pairs export at one 64-outcome chunk; the bf16 export
     # (score_all_pairs' compute_dtype=bfloat16) at both; last bench.py's op
@@ -637,10 +651,16 @@ def check_rank_layout(r: torch.Tensor, levels: torch.Tensor,
             "a rank triangle is not a permutation of {1..m}/m")
 
 
-def phase_ranks(model, z: np.ndarray) -> dict:
+def phase_ranks(model, z: np.ndarray):
     """rank_tensor on the serving model for RANK_CHUNK outcomes at every
-    drug (one K1 launch, then one rank a outcome), into host memory."""
-    WORK.mkdir(parents=True, exist_ok=True)
+    drug (one K1 launch, then one rank a outcome), into host memory, and
+    every outcome's layout on the card. The references for two outcomes
+    and a tie case (numpy float32 in threads, the float64 offline path in
+    its process pool) start here and run on beside the next phases.
+    Returns the path's launch counts and the function that waits for the
+    references, holds the ranks to them and prints the phase's line."""
+    work = WORK / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
     n = z.shape[0]
     m = n * (n - 1) // 2
     w_sym = P.decoder_weight(model)[:RANK_CHUNK].contiguous()
@@ -666,16 +686,9 @@ def phase_ranks(model, z: np.ndarray) -> dict:
     rank_ms = cuda_ms(lambda: R.rank_lower(scores[0], order_idx, True), 5)
     del order_idx
 
-    # every outcome's layout, on the card
-    rows, cols = torch.tril_indices(n, n, -1, device="cuda")
-    levels = torch.from_numpy(np_rank_levels(m)).cuda()
-    for r in ranks:
-        check_rank_layout(torch.from_numpy(r).cuda(), levels, rows, cols)
-    del rows, cols, levels
-
-    # two outcomes against numpy float32 (exactly) and the float64 offline
-    # path (within 2.5e-7: m > 2^24, so the float32 ranks round), and a
-    # tie case; the numpy sorts run in threads beside the offline pool
+    # the references: two outcomes in numpy float32 (exactly) and on the
+    # float64 offline path (within 2.5e-7: m > 2^24, so the float32 ranks
+    # round), and a tie case in numpy
     picked = (0, RANK_CHUNK - 1)
     raw = np.stack([scores[l].cpu().numpy() for l in picked])
     ties = torch.round(scores[0] * 2) / 2
@@ -684,64 +697,86 @@ def phase_ranks(model, z: np.ndarray) -> dict:
     ties = ties.cpu().numpy()
     del scores
     torch.cuda.empty_cache()
-    raw_path, off_path = str(WORK / "raw.npy"), str(WORK / "offline.npy")
+    raw_path, off_path = str(work / "raw.npy"), str(work / "offline.npy")
     np.save(raw_path, raw)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        refs = [pool.submit(np_rank_lower, x) for x in (*raw, ties)]
-        offline = np.asarray(R.normalize_scores_offline(
-            raw_path, off_path, num_workers=2))
-        refs = [f.result() for f in refs]
-    t_refs = time.perf_counter() - t0
-    lo = np.tril_indices(n, -1)
-    off_err = 0.0
-    for i, l in enumerate(picked):
-        require(np.array_equal(ranks[l][lo], refs[i]),
-                f"outcome {l}: ranks differ from the numpy float32 formula")
-        off_err = max(off_err, float(np.abs(ranks[l] - offline[i]).max()))
-    require(off_err <= 2.5e-7,
-            f"ranks differ from the float64 offline path by {off_err}")
-    require(np.array_equal(tie_ranks[lo], refs[2])
-            and np.array_equal(tie_ranks, tie_ranks.T),
-            "tie case: ranks differ from the numpy stable formula")
-    del ranks, raw, offline, tie_ranks, ties
-    emit({"phase": "ranks", "drugs": n, "outcomes": RANK_CHUNK,
-          "of_outcomes": NUM_LABELS, "host_gb": RANK_CHUNK * n * n * 4 / 1e9,
-          "launches": counts, "rank_tensor_s": t_main,
-          "k1_chunk_ms": k1_ms, "rank_ms_per_outcome": rank_ms,
-          "checked_exact_outcomes": list(picked),
-          "max_abs_err_vs_offline_f64": off_err,
-          "tie_case_distinct_values": n_values, "reference_s": t_refs,
-          "peak_device_mem_gb": peak})
-    shutil.rmtree(WORK)
-    return counts
+    t_refs = time.perf_counter()
+    pool = ThreadPoolExecutor(4)
+    refs = [pool.submit(np_rank_lower, x) for x in (*raw, ties)]
+    offline = pool.submit(R.normalize_scores_offline, raw_path, off_path, 2)
+    pool.shutdown(wait=False)
+
+    # every outcome's layout, on the card
+    rows, cols = torch.tril_indices(n, n, -1, device="cuda")
+    levels = torch.from_numpy(np_rank_levels(m)).cuda()
+    for r in ranks:
+        check_rank_layout(torch.from_numpy(r).cuda(), levels, rows, cols)
+    del rows, cols, levels
+
+    def finish() -> None:
+        ref = [f.result() for f in refs]
+        off = np.asarray(offline.result())
+        lo = np.tril_indices(n, -1)
+        off_err = 0.0
+        for i, l in enumerate(picked):
+            require(np.array_equal(ranks[l][lo], ref[i]),
+                    f"outcome {l}: ranks differ from the numpy float32 "
+                    "formula")
+            off_err = max(off_err, float(np.abs(ranks[l] - off[i]).max()))
+        require(off_err <= 2.5e-7,
+                f"ranks differ from the float64 offline path by {off_err}")
+        require(np.array_equal(tie_ranks[lo], ref[2])
+                and np.array_equal(tie_ranks, tie_ranks.T),
+                "tie case: ranks differ from the numpy stable formula")
+        emit({"phase": "ranks", "drugs": n, "outcomes": RANK_CHUNK,
+              "of_outcomes": NUM_LABELS,
+              "host_gb": RANK_CHUNK * n * n * 4 / 1e9,
+              "launches": counts, "rank_tensor_s": t_main,
+              "k1_chunk_ms": k1_ms, "rank_ms_per_outcome": rank_ms,
+              "checked_exact_outcomes": list(picked),
+              "max_abs_err_vs_offline_f64": off_err,
+              "tie_case_distinct_values": n_values,
+              "reference_s": time.perf_counter() - t_refs,
+              "peak_device_mem_gb": peak})
+        shutil.rmtree(work)
+
+    return counts, finish
 
 
 def phase_predict_ensemble() -> dict:
     """The serving CLI with two checkpoints (seeds 0 and 1) on the
-    reference scale divided by ENSEMBLE_SHRINK: ranks, sigmoid-mean
-    scores and triple probabilities."""
-    WORK.mkdir(parents=True, exist_ok=True)
+    reference scale divided by ENSEMBLE_SHRINK, exporting ranks (seed
+    files not kept), sigmoid-mean scores, the embeddings and triple
+    probabilities. The references start from the exported embeddings and
+    each seed's decoder weight: each seed's K1 scores again (launches not
+    counted), within K1's tolerance of the plain version; the exported
+    scores within 1e-5 of the sigmoid mean of the plain scores; the
+    exported ranks equal to numpy's ranks (np_rank_lower) of the gmean of
+    each seed's numpy ranks of its K1 scores."""
+    from scipy.stats import gmean
+
+    work = WORK / "ensemble"
+    work.mkdir(parents=True, exist_ok=True)
     ds = make_reference_scale_dataset(
         seed=0, **reference_scale_kwargs(ENSEMBLE_SHRINK))
     cfg = flagship_config(ds.num_labels)
-    ckpts = []
+    ckpts, w_syms = [], []
     for seed in (0, 1):
-        ckpts.append(str(WORK / f"seed{seed}.pt"))
-        save_checkpoint(ckpts[-1], random_model(cfg, ds, seed), cfg)
+        model = random_model(cfg, ds, seed)
+        ckpts.append(str(work / f"seed{seed}.pt"))
+        save_checkpoint(ckpts[-1], model, cfg)
+        w_syms.append(P.decoder_weight(model).cuda())
     n, L = ds.num_drugs, ds.num_labels
-    del ds
-    ranks_out, scores_out = str(WORK / "ranks.npy"), str(WORK / "scores.npy")
-    argv = ["--checkpoint", *ckpts, "--synthetic_scale",
-            "--synthetic_scale_shrink", str(ENSEMBLE_SHRINK), "--seed", "0",
-            "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
-            "--eval_type", "str+kg_full"]
+    del ds, model
+    out = {k: str(work / f"{k}.npy") for k in ("ranks", "scores", "z")}
     reset_launches()  # counts start here
     t0 = time.perf_counter()
-    probs = cli_predict.main(argv + [
-        "--export_ranks", ranks_out, "--export_scores", scores_out,
-        "--export_embeddings", str(WORK / "z.npy"), "--keep_seed_ranks",
-        "--triples", *ENSEMBLE_TRIPLES])
+    probs = np.asarray(cli_predict.main([
+        "--checkpoint", *ckpts, "--synthetic_scale",
+        "--synthetic_scale_shrink", str(ENSEMBLE_SHRINK), "--seed", "0",
+        "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
+        "--eval_type", "str+kg_full", "--export_ranks", out["ranks"],
+        "--export_scores", out["scores"], "--export_embeddings", out["z"],
+        "--triples", *ENSEMBLE_TRIPLES]))
     t_cli = time.perf_counter() - t0
     counts = read_launches()  # counts end here
     chunks = -(-L // ENSEMBLE_CHUNK)
@@ -749,65 +784,68 @@ def phase_predict_ensemble() -> dict:
                        "sorted_segment_sum": 0},
             f"ensemble launches {counts}, expected 2 seeds x {chunks} "
             "chunks for the ranks and as many for the scores")
+    left = sorted(p.name for p in work.glob("ranks.npy.seed*"))
+    require(not left, f"seed files {left} left without --keep_seed_ranks")
 
-    # the ensemble ranks: the gmean of the seed files, re-ranked in numpy
-    from scipy.stats import gmean
-
-    seeds = [np.load(f"{ranks_out}.seed{i}.npy") for i in (0, 1)]
-    ens = np.load(ranks_out)
-    require(ens.shape == (L, n, n) and not np.array_equal(ens, seeds[0]),
-            f"ensemble ranks: shape {ens.shape} or equal to seed 0's")
-    with np.errstate(divide="ignore"):
-        g = np.asarray(gmean(np.stack(seeds), axis=0), np.float32)
+    t0 = time.perf_counter()
+    z = torch.from_numpy(np.load(out["z"])).cuda()
+    require(z.shape == (2, n, D), f"embeddings {tuple(z.shape)}")
+    f32 = torch.float32
+    mean = torch.zeros(L, n, n, device="cuda")
+    k1_err, seed_ranks = 0.0, []
     lo = np.tril_indices(n, -1)
+    with ThreadPoolExecutor(8) as pool:
+        for zs, w in zip(z, w_syms):
+            got = bilinear.bilinear_scores(zs, zs, w, f32, f32)
+            plain = bilinear.bilinear_scores_plain(zs, zs, w, f32, f32)
+            err, scale = max_err(got, plain)
+            require(err <= 1e-4 * scale,
+                    f"ensemble: K1 differs from its plain version by {err} "
+                    f"(max |plain| {scale})")
+            k1_err = max(k1_err, err)
+            mean += torch.sigmoid(plain)
+            seed_ranks.append([pool.submit(np_rank_lower, s)
+                               for s in got.cpu().numpy()])
+            del got, plain
+        scores = torch.from_numpy(np.load(out["scores"])).cuda()
+        score_err = (scores - mean / 2).abs().max().item()
+        require(score_err <= 1e-5,
+                f"ensemble scores differ from the plain sigmoid mean by "
+                f"{score_err}")
+        del scores, mean
+        # each seed's ranks in the seed file's layout (symmetric, zero
+        # diagonal), their gmean, and its re-rank
+        mats = np.zeros((2, L, n, n), np.float32)
+        for i, futures in enumerate(seed_ranks):
+            for l, f in enumerate(futures):
+                mats[i, l][lo] = f.result()
+        mats += mats.transpose(0, 1, 3, 2)
+        with np.errstate(divide="ignore"):
+            g = np.asarray(gmean(mats, axis=0), np.float32)
+        del mats
+        refs = list(pool.map(np_rank_lower, g))
+    ens = np.load(out["ranks"])
+    require(ens.shape == (L, n, n), f"ensemble ranks {ens.shape}")
     for l in range(L):
-        require(np.array_equal(ens[l][lo], np_rank_lower(g[l]))
+        require(np.array_equal(ens[l][lo], refs[l])
                 and np.array_equal(ens[l], ens[l].T),
-                f"ensemble ranks of outcome {l} differ from the numpy "
-                "re-rank of the seeds' gmean")
+                f"ensemble ranks of outcome {l} differ from numpy's")
     # the triple probabilities against the exported sigmoid-mean scores
-    scores = np.load(scores_out, mmap_mode="r")
+    scores = np.load(out["scores"], mmap_mode="r")
     want = [scores[l, a, b] for l, a, b in
             (map(int, t.split(":")) for t in ENSEMBLE_TRIPLES)]
-    triple_err = float(np.abs(np.asarray(probs) - want).max())
-    require(triple_err <= 1e-5 and np.isfinite(scores).all()
-            and ((0 < np.asarray(probs)) & (np.asarray(probs) < 1)).all(),
+    triple_err = float(np.abs(probs - want).max())
+    require(triple_err <= 1e-5 and ((0 < probs) & (probs < 1)).all(),
             f"triple probabilities differ from the scores by {triple_err}")
-    del scores, seeds, ens, g
-    # without --keep_seed_ranks: the seed files gone, and a rank tensor
-    # equal to the first run's when the embeddings are (the card's KG
-    # scatters sum in an order that can change between runs), else one
-    # of the right layout
-    again = str(WORK / "ranks_again.npy")
-    cli_predict.main(argv + ["--export_ranks", again, "--export_embeddings",
-                             str(WORK / "z_again.npy")])
-    r1, r2 = np.load(ranks_out), np.load(again)
-    same_z = np.array_equal(np.load(WORK / "z.npy"),
-                            np.load(WORK / "z_again.npy"))
-    if same_z:
-        require(np.array_equal(r2, r1),
-                "the ensemble ranks changed without --keep_seed_ranks")
-    levels = np_rank_levels(n * (n - 1) // 2)
-    for r in r2:
-        require(np.array_equal(np.sort(r[lo]), levels)
-                and np.array_equal(r, r.T) and not np.diagonal(r).any(),
-                "the second run's ensemble ranks are not a rank tensor")
-    rerun_diff = float(np.abs(r2 - r1).max())
-    del r1, r2
-    left = sorted(p.name for p in WORK.glob("ranks_again.npy.seed*"))
-    kept = sorted(p.name for p in WORK.glob("ranks.npy.seed*"))
-    require(not left and kept == ["ranks.npy.seed0.npy",
-                                  "ranks.npy.seed1.npy"],
-            f"seed files: {left} left without --keep_seed_ranks, {kept} "
-            "kept with it")
+    del scores, ens, g
     emit({"phase": "predict_ensemble", "shrink": ENSEMBLE_SHRINK,
           "drugs": n, "outcomes": L, "seeds": 2,
           "label_chunk": ENSEMBLE_CHUNK, "launches": counts, "cli_s": t_cli,
-          "triple_probs": [float(p) for p in probs],
-          "triple_max_abs_err": triple_err,
-          "rerun_same_embeddings": same_z,
-          "rerun_max_abs_rank_diff": rerun_diff})
-    shutil.rmtree(WORK)
+          "k1_max_abs_err_vs_plain": k1_err,
+          "scores_max_abs_err_vs_plain": score_err,
+          "triple_probs": probs.tolist(), "triple_max_abs_err": triple_err,
+          "reference_s": time.perf_counter() - t0})
+    shutil.rmtree(work)
     return counts
 
 
@@ -868,8 +906,9 @@ def phase_train_small():
     model = random_model(cfg, ds, seed=1)
     runs = {"cpu": ("cpu", True, 3), "cuda": ("cuda", True, 3),
             "cuda_plain_bwd": ("cuda", False, 1)}
-    losses, grads, launches, evals = {}, {}, {}, {}
+    losses, grads, launches, evals, seconds = {}, {}, {}, {}, {}
     for name, (dev, src_sort, steps) in runs.items():
+        t0 = time.perf_counter()
         batch, kg = DDICollator(ds, split="train", seed=0, device=dev,
                                 kg_src_sort=src_sort)()
         trainer = FinetuneTrainer(cfg, batch, kg,
@@ -888,6 +927,7 @@ def phase_train_small():
                 splits["val"], build_kg=False)[0]
             ev = Evaluator(trainer.model, cfg.finetune_mode)
             evals[name] = (ev.evaluate_ft(val, kg, "val"), ev.best_metrics)
+        seconds[name] = time.perf_counter() - t0
     n_types = len(ds.kg_edge_indices)
     per_step = k2_launches_per_step(list(ds.kg_edge_indices),
                                     cfg.model.encoder.hgt.num_layers)
@@ -931,7 +971,7 @@ def phase_train_small():
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
           "val_key_cuda": key_g, "val_key_cpu": key_c,
           "max_abs_val_metric_err_vs_cpu": metric_err,
-          "launches": launches})
+          "launches": launches, "run_s": seconds})
 
 
 def train_argv(memory_flags, epochs: int, save_dir: Path,
@@ -1059,6 +1099,7 @@ def phase_build() -> None:
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA GPU: "
                  "torch.cuda.is_available() is false")
@@ -1084,21 +1125,35 @@ def main(argv) -> int:
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
                  "--kernels or --train_memory")
 
-    phase_build()
+    wall = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        wall[name] = time.perf_counter() - t0
+        return res
+
+    run("build", phase_build)
     if argv == ["--kernels"]:
         phase_kernels()
         phase_k2_kernels()
         print(gpu_line(), flush=True)
         return 0
-    k1_checks = phase_kernels()
-    k2_checks = phase_k2_kernels()
-    phase_small()
-    serving, model, z = phase_serving()
-    paths = {"serving": serving, "ranks": phase_ranks(model, z)}
+    k1_checks = run("kernels", phase_kernels)
+    k2_checks = run("k2_kernels", phase_k2_kernels)
+    run("small", phase_small)
+    serving, model, z = run("serving", phase_serving)
+    paths = {"serving": serving}
+    paths["ranks"], finish_ranks = run("ranks", phase_ranks, model, z)
     del model, z
-    paths["predict_ensemble"] = phase_predict_ensemble()
-    phase_train_small()
-    paths["training"] = phase_training()
+    # the rank references run on the host beside the next three phases
+    paths["predict_ensemble"] = run("predict_ensemble",
+                                    phase_predict_ensemble)
+    run("train_small", phase_train_small)
+    paths["training"] = run("training", phase_training)
+    run("ranks_references", finish_ranks)
+    emit({"phase": "wall", "seconds": wall,
+          "main_s": time.perf_counter() - t_start})
 
     def entry(name, source, replaces, checks, shape_keys):
         timed = [r for r in checks if "ms" in r]

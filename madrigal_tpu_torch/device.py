@@ -29,3 +29,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def copy_to_host(dst, src: torch.Tensor) -> None:
+    """Copy `src` into the host array `dst` (an ndarray or a slice of an
+    np.memmap, of `src`'s shape and dtype) in one transfer, with no host
+    tensor in between."""
+    torch.from_numpy(dst).copy_(src)

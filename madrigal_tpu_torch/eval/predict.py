@@ -33,7 +33,7 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..data.collate import DDICollator
 from ..data.kg import HeteroKGBatch
-from ..device import resolve_device
+from ..device import copy_to_host, resolve_device
 from ..models.encoder import (
     MadrigalMultilabel,
     build_model,
@@ -144,7 +144,7 @@ def score_all_pairs(
         blk = bilinear_scores(zh, zt, w_sym[s:e].contiguous(),
                               out_dtype=torch.float32,
                               compute_dtype=compute_dtype)
-        out[s:e] = blk.cpu().numpy()
+        copy_to_host(out[s:e], blk)
     log_phase("scoring", t0, dev)
     return out
 
@@ -206,7 +206,6 @@ def ensemble_sigmoid_scores_all_pairs(
     seeds,
     label_chunk: int = 32,
     out: Optional[np.ndarray] = None,
-    compute_dtype: torch.dtype = torch.float32,
 ) -> np.ndarray:
     """[L, N, N] sigmoid-mean ensemble of per-seed all-pairs scores
     (reference predict.py:466-499), streamed per label chunk so `out` may
@@ -214,8 +213,8 @@ def ensemble_sigmoid_scores_all_pairs(
 
     seeds: (model, z) per checkpoint, all with the same L and N (the
     published 5-seed protocol retrains one architecture under other
-    seeds). Each seed's chunk of scores is one K1 call on the models'
-    device; the sigmoids are summed in seed order and divided by the
+    seeds). Each seed's chunk of scores is one float32 K1 call on the
+    models' device; the sigmoids are summed in seed order and divided by the
     number of seeds."""
     dev = _model_device(seeds[0][0])
     w_syms = [decoder_weight(m) for m, _ in seeds]
@@ -230,9 +229,9 @@ def ensemble_sigmoid_scores_all_pairs(
         for z, w in zip(zs, w_syms):
             p = torch.sigmoid(bilinear_scores(
                 z, z, w[s:e].contiguous(), out_dtype=torch.float32,
-                compute_dtype=compute_dtype))
+                compute_dtype=torch.float32))
             acc = p if acc is None else acc.add_(p)
-        out[s:e] = acc.div_(len(seeds)).cpu().numpy()
+        copy_to_host(out[s:e], acc.div_(len(seeds)))
     return out
 
 

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import copy_to_host, resolve_device
 from ..ops.bilinear import bilinear_scores
 
 TILE = 128  # the JAX package's tri-tile packing block
@@ -142,7 +142,7 @@ def rank_tensor(
         e = min(s + chunk, L)
         block = normalized_ranks_for_outcomes(zd, wd[s:e], compute_dtype,
                                               stable=stable)
-        out[s:e] = block.cpu().numpy()
+        copy_to_host(out[s:e], block)
     return out
 
 
@@ -179,8 +179,8 @@ def ensemble_normalized_ranks(rank_tensors, out: Optional[np.ndarray] = None,
         stacked = np.stack([np.asarray(r[s:e]) for r in rank_tensors])
         with np.errstate(divide="ignore"):  # log(0) off the lower triangle
             g = np.asarray(gmean(stacked, axis=0), np.float32)
-        out[s:e] = normalized_rank_matrices(
-            torch.from_numpy(g).to(dev), stable=stable).cpu().numpy()
+        copy_to_host(out[s:e], normalized_rank_matrices(
+            torch.from_numpy(g).to(dev), stable=stable))
     return out
 
 

@@ -166,6 +166,27 @@ def test_score_all_pairs_head_tail_and_bf16(served):
     assert np.abs(bf - full).max() <= 2e-2 * np.abs(full).max()
 
 
+@pytest.mark.parametrize("logits", [True, False],
+                         ids=["logits", "probabilities"])
+def test_ensemble_sigmoid_mean_matches_jax(logits):
+    """Three seeds' triple scores, as logits (some inside [0, 1], which
+    must still be sigmoided) or as probabilities: the port's mean equals
+    the JAX package's within 1e-7."""
+    rng = np.random.RandomState(4)
+    sets = [rng.randn(40).astype(np.float32) for _ in range(3)]
+    sets[0][:10] = rng.uniform(0, 1, 10)
+    if not logits:
+        sets = [1 / (1 + np.exp(-s)) for s in sets]
+    got = t_predict.ensemble_sigmoid_mean(sets, scores_are_logits=logits)
+    want = np.asarray(j_predict.ensemble_sigmoid_mean(
+        sets, scores_are_logits=logits))
+    assert got.shape == (40,)
+    np.testing.assert_allclose(got, want, atol=1e-7, rtol=0)
+    if not logits:
+        np.testing.assert_allclose(got, np.mean(sets, axis=0), atol=1e-7,
+                                   rtol=0)
+
+
 def test_init_weights_is_seeded_and_complete(served):
     """A model from a seeded generator: the same seed gives the same
     weights, another seed other weights, and every weight is set (finite,
