@@ -16,9 +16,12 @@ PrimeKG-scale synthetic KG through `madrigal_tpu_torch.cli.predict` and
 export of the same model through `madrigal_tpu_torch.eval.ranks.rank_tensor`
 for RANK_CHUNK of its 960 outcomes at all 6,843 drugs; the two-checkpoint
 ensemble through the serving CLI on the reference scale divided by
-ENSEMBLE_SHRINK; and stage-3 training, with its evaluation sweep and
-test pass, through `madrigal_tpu_torch.cli.train_ddi` on the same data
-(divided by TRAIN_SHRINK) with the memory flags TRAIN_MEMORY_FLAGS.
+ENSEMBLE_SHRINK; stage-3 training, with its evaluation sweep and test
+pass, through `madrigal_tpu_torch.cli.train_ddi` on the same data
+(divided by SYNTHETIC_TRAIN_SHRINK) with the memory flags
+TRAIN_MEMORY_FLAGS; and the same at full scale on the data written in the
+reference's on-disk layout (`--data_dir`), warm-started from a stage-2
+checkpoint, with `--all_train` and the serving CLI on that layout.
 
 Phases, in order; any failure ends the script with a non-zero exit:
 
@@ -27,7 +30,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
      with nvcc for sm_90a, the two compiles started together;
   3. kernels: K1 and K2 against their plain versions at ragged shapes
      and at the shapes the two paths give them (K2: every edge type the
-     training run reduces), timed with CUDA events
+     full-scale training run reduces; K2 over one step's 15 launches),
+     timed with CUDA events
      beside the plain version, one PyTorch call computing the same
      function (`library_ms`, timed only here) and the card's bound;
   4. small: the serving path on a small dataset on the card against the
@@ -53,12 +57,28 @@ Phases, in order; any failure ends the script with a non-zero exit:
      ranks, and the seed files gone;
   8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
-     masks, with the Evaluator's val metrics after them, and the card's
-     HGT gradients through K2 against those through the plain
-     `index_add_` backward (`--no_src_mxu`);
-  9. training: the training CLI at the flagship configuration for 3
-     epochs with one evaluation sweep and the test pass, with every
-     kernel's launch count set to 0 just before it and read just after.
+     masks, under AdamW (with the Evaluator's val metrics after them),
+     RAdam and LARS, and the card's HGT gradients through K2 against
+     those through the plain `index_add_` backward (`--no_src_mxu`);
+  9. training: the training CLI at the flagship configuration on the
+     reference scale / SYNTHETIC_TRAIN_SHRINK for 3 epochs with one
+     evaluation sweep and the test pass, with every kernel's launch count
+     set to 0 just before it and read just after;
+ 10. data_dir: the reference-scale dataset written in the reference
+     layout by the port's exporter (val/test tables of the 80/10/10
+     split beside the train table), a stage-2 checkpoint of a random
+     flagship encoder (seed 2), and the training CLI on that directory
+     (`--data_dir --checkpoint --use_pretrained_adaptor`, RAdam) for 2
+     epochs, one sweep and the test pass (counts set to 0 before, read
+     after): the data it loaded against the dataset written (every array
+     but the molecules, exactly), the native featurizer's molecules
+     against the built-in one's, the model the trainer received against
+     the checkpoint and the fresh init, exactly; then the serving CLI
+     with `--data_dir` on the trained model, its triples against the
+     exported embeddings;
+ 11. all_train: the training CLI with `--all_train` on reference-format
+     data at the reference scale / ALL_TRAIN_SHRINK for one epoch (counts
+     set to 0 before, read after).
 
 Standard output: one JSON line per phase, a line of each phase's wall
 seconds, the `{"kernels": [...]}` line,
@@ -96,10 +116,13 @@ import torch
 
 import madrigal_tpu_torch
 from madrigal_tpu_torch import config as C
+from madrigal_tpu_torch.cli import common as cli_common
 from madrigal_tpu_torch.cli import predict as cli_predict
 from madrigal_tpu_torch.cli import train_ddi as cli_train_ddi
 from madrigal_tpu_torch.cli.common import reference_scale_kwargs
+from madrigal_tpu_torch.data import datasets, native_featurizer
 from madrigal_tpu_torch.data.collate import DDICollator
+from madrigal_tpu_torch.data.featurize import _rdkit_available, featurize_many
 from madrigal_tpu_torch.data.kg import PAD_MULTIPLE, build_kg_batch, kg_schema
 from madrigal_tpu_torch.data.synthetic import (
     make_dataset,
@@ -113,7 +136,12 @@ from madrigal_tpu_torch.eval import ranks as R
 from madrigal_tpu_torch.eval.evaluate import Evaluator
 from madrigal_tpu_torch.models.encoder import build_model, init_weights
 from madrigal_tpu_torch.ops import _build, bilinear, segment_sorted
-from madrigal_tpu_torch.train.checkpoint import save_checkpoint
+from madrigal_tpu_torch.train import finetune
+from madrigal_tpu_torch.train.checkpoint import (
+    CL_TRANSFER_DROP_TOP,
+    load_checkpoint,
+    save_checkpoint,
+)
 from madrigal_tpu_torch.train.finetune import FinetuneTrainer
 
 ROOT = Path(__file__).resolve().parent
@@ -131,12 +159,15 @@ DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32",
 NUM_DRUGS, NUM_LABELS, LABEL_CHUNK, SERVE_HEADS = 6843, 960, 64, 128
 TRIPLES = ["0:1:2", "5:10:20"]
 
-# the training run: the reference scale divided by TRAIN_SHRINK (chosen on
-# the card: the smallest of 1, 2, 4 whose peak memory fits in 80 GB), the
-# epochs, and the memory flags: the fastest of MEMORY_CHOICES that fits
-# (`--train_memory`; with none a full-scale step asks for more than
-# 80 GB), which recomputes each HGT edge type's messages in the backward
-TRAIN_SHRINK, TRAIN_EPOCHS = 1, 3
+# the full-scale training runs (--data_dir, and --train_memory's): the
+# reference scale divided by TRAIN_SHRINK (chosen on the card: the
+# smallest of 1, 2, 4 whose peak memory fits in 80 GB), and the memory
+# flags: the fastest of MEMORY_CHOICES that fits (`--train_memory`; with
+# none a full-scale step asks for more than 80 GB), which recomputes each
+# HGT edge type's messages in the backward. The --synthetic_scale
+# training run: the reference scale divided by SYNTHETIC_TRAIN_SHRINK (the
+# --data_dir run trains the full scale) for TRAIN_EPOCHS epochs
+TRAIN_SHRINK, SYNTHETIC_TRAIN_SHRINK, TRAIN_EPOCHS = 1, 8, 3
 TRAIN_MEMORY_FLAGS = ["--set", "model.encoder.hgt.remat_edge_types=true"]
 # one evaluation sweep (after epoch index 2 of 0-2) and the test pass
 TRAIN_EVAL_INTERVAL = 2
@@ -146,6 +177,14 @@ TRAIN_EVAL_INTERVAL = 2
 RANK_CHUNK = 32
 ENSEMBLE_SHRINK, ENSEMBLE_CHUNK = 8, 32
 ENSEMBLE_TRIPLES = ["0:1:2", "7:100:3", "119:854:0"]
+# the reference-format run: epochs of the --data_dir training run (one
+# evaluation sweep after the second, then the test pass), its optimizer,
+# and the scale divisor and epochs of the --all_train run
+DATA_DIR_EPOCHS, DATA_DIR_OPTIMIZER = 2, "radam"
+ALL_TRAIN_SHRINK, ALL_TRAIN_EPOCHS = 8, 1
+# train_small's RAdam and LARS runs: steps (RAdam at beta2 0.999 passes
+# its rectification threshold at step 6)
+OPTIM_STEPS = 7
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -196,6 +235,27 @@ def flagship_config(num_labels: int, dropout: bool = True
         model=C.ModelConfig(encoder=enc, prediction_dim=num_labels),
         optim=C.OptimizerConfig(), finetune_mode="str_random_sample",
         num_epochs=10, warmup_epochs=2, seed=0)
+
+
+def narrow_config(num_labels: int) -> C.TrainConfig:
+    """The flagship's modules and options at narrow widths, dropout 0:
+    train_small's optimizer runs, whose CPU side at full width would take
+    most of the phase."""
+    cfg = flagship_config(num_labels, dropout=False)
+    enc = cfg.model.encoder
+    enc = dataclasses.replace(
+        enc, feature_dim=32,
+        gin=C.GINConfig(hidden_dims=(32, 32), num_mlp_layer=2),
+        hgt=dataclasses.replace(enc.hgt, hidden_dim=64),
+        cv=dataclasses.replace(enc.cv, hidden_dims=(64, 32)),
+        chemcpa=dataclasses.replace(enc.chemcpa, dim=32,
+                                    autoencoder_width=64),
+        transformer=dataclasses.replace(enc.transformer, num_layers=1,
+                                        att_heads=2, head_dim=16,
+                                        ffn_dim=64),
+        proj=dataclasses.replace(enc.proj, hidden_dims=(64, 64)))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encoder=enc))
 
 
 def random_model(cfg: C.TrainConfig, ds, seed: int) -> torch.nn.Module:
@@ -415,6 +475,15 @@ def k2_shapes(shrink: int) -> dict:
                  nodes[et[0]]) for et in edges if et in live}
 
 
+def check_k2_shapes(edge_indices: dict, shrink: int, path: str) -> None:
+    """The KG a run trained on gives K2 the edge counts that
+    phase_k2_kernels checked it at for that run's scale."""
+    want = {et: shape[0] for et, shape in k2_shapes(shrink).items()}
+    got = {et: edge_indices[et].shape[1] for et in want}
+    require(got == want, f"{path}: the KG's live edge counts {got} are not "
+            f"the ones K2 was checked at ({want})")
+
+
 def phase_k2_kernels():
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     # ragged: empty segments, trailing padding rows, N not a multiple of a
@@ -422,9 +491,16 @@ def phase_k2_kernels():
     checks = [k2_check(e_real, e_pad, n, dt, seed=4)
               for e_real, e_pad, n in ((900, 1000, 37), (4000, 4096, 1001))
               for dt in (f32, bf16, f16)]
-    # every edge type the training run reduces, at the shape the run gives
-    # it; the smallest and the largest timed (the kernels line reports the
-    # last timed row, the largest)
+    # every edge type the runs at the reference scale / 8 (--synthetic_scale
+    # training, --all_train) reduce, at the shape those runs give it
+    for shrink in sorted({SYNTHETIC_TRAIN_SHRINK, ALL_TRAIN_SHRINK}
+                         - {TRAIN_SHRINK}):
+        for et, shape in k2_shapes(shrink).items():
+            checks.append({"edge_type": "__".join(et), "shrink": shrink,
+                           **k2_check(*shape, f32, seed=7)})
+    # every edge type the full-scale training run (--data_dir) reduces, at
+    # the shape the run gives it; the smallest and the largest timed (the
+    # kernels line reports the last timed row, the largest)
     for et, shape in k2_shapes(TRAIN_SHRINK).items():
         checks.append({"edge_type": "__".join(et), "shrink": TRAIN_SHRINK,
                        **k2_check(*shape, f32, seed=6,
@@ -442,20 +518,28 @@ def phase_k2_kernels():
 def k2_step(shrink: int) -> dict:
     """K2 over one training step: every (HGT layer, live edge type)
     launch at the shape the run gives it, each timed alone, summed, and
-    the sum of their bounds."""
+    the sum of their bounds; beside it the plain version and one
+    `torch.segment_reduce` call a launch, timed and summed the same way."""
     shapes = k2_shapes(shrink)
     hgt = flagship_config(NUM_LABELS).model.encoder.hgt
     layers = k2_live_edge_types(list(shapes), hgt.num_layers)
-    ms, bound = {}, {}
+    ms, plain, library, bound = {}, {}, {}, {}
     for et, (e_real, e_pad, n) in shapes.items():
         data, starts = k2_inputs(e_real, e_pad, n, torch.float32, seed=8)
+        offsets = starts.long()
         ms[et] = cuda_ms(
             lambda: segment_sorted.sorted_segment_sum(data, starts, n), 20)
+        plain[et] = cuda_ms(lambda: segment_sorted.sorted_segment_sum_plain(
+            data, starts, n), 20)
+        library[et] = cuda_ms(
+            lambda: torch.segment_reduce(data, "sum", offsets=offsets), 20)
         bound[et] = k2_bound(e_real, n, K2_WIDTH, torch.float32)[0]
-        del data, starts
+        del data, starts, offsets
     launches = [et for layer in layers for et in layer]
     return {"launches": len(launches),
             "ms": sum(ms[et] for et in launches),
+            "plain_ms": sum(plain[et] for et in launches),
+            "library_ms": sum(library[et] for et in launches),
             "bound_ms": sum(bound[et] for et in launches)}
 
 
@@ -894,25 +978,36 @@ def config_overrides(cfg) -> list:
 
 
 def phase_train_small():
-    """3 training steps at flagship widths, dropout 0, on a small dataset:
-    on the card against the CPU from the same weights and masks (every
-    loss within 1e-4 relative: the same f32 math summed in another order,
-    moved through 3 Adam steps), and the card's step-1 HGT gradients
-    through K2 against those through the plain backward (within 1e-4 of
-    each tensor's largest: K2 and index_add_ sum the same rows in another
-    order)."""
+    """Training steps on a small dataset, dropout 0, on the card against
+    the CPU from the same weights and masks (every loss within 1e-4
+    relative: the same f32 math summed in another order, moved through
+    the optimizer's steps): 3 steps under AdamW at flagship widths, and
+    OPTIM_STEPS under RAdam and LARS at narrow widths (narrow_config),
+    RAdam's last two past its rectification threshold; and the card's
+    step-1 HGT gradients through K2 against those through the plain
+    backward (within 1e-4 of each tensor's largest: K2 and index_add_ sum
+    the same rows in another order)."""
     ds, splits = make_split_dataset(seed=3)
     cfg = flagship_config(ds.num_labels, dropout=False)
     model = random_model(cfg, ds, seed=1)
-    runs = {"cpu": ("cpu", True, 3), "cuda": ("cuda", True, 3),
-            "cuda_plain_bwd": ("cuda", False, 1)}
+    narrow = narrow_config(ds.num_labels)
+    narrow_model = random_model(narrow, ds, seed=1)
+    runs = {"cpu": ("cpu", True, 3, cfg, model),
+            "cuda": ("cuda", True, 3, cfg, model),
+            "cuda_plain_bwd": ("cuda", False, 1, cfg, model)}
+    for opt in ("radam", "lars"):
+        opt_cfg = dataclasses.replace(narrow, optim=dataclasses.replace(
+            narrow.optim, optimizer=opt))
+        for dev in ("cpu", "cuda"):
+            runs[f"{dev}_{opt}"] = (dev, True, OPTIM_STEPS, opt_cfg,
+                                    narrow_model)
     losses, grads, launches, evals, seconds = {}, {}, {}, {}, {}
-    for name, (dev, src_sort, steps) in runs.items():
+    for name, (dev, src_sort, steps, run_cfg, start) in runs.items():
         t0 = time.perf_counter()
         batch, kg = DDICollator(ds, split="train", seed=0, device=dev,
                                 kg_src_sort=src_sort)()
-        trainer = FinetuneTrainer(cfg, batch, kg,
-                                  copy.deepcopy(model).to(dev))
+        trainer = FinetuneTrainer(run_cfg, batch, kg,
+                                  copy.deepcopy(start).to(dev))
         reset_launches()
         losses[name] = []
         for step in range(steps):
@@ -922,7 +1017,7 @@ def phase_train_small():
                                for k, p in trainer.model.named_parameters()
                                if "kg_encoder" in k}
         launches[name] = read_launches()
-        if steps == 3:  # the Evaluator's val sweep after the 3 steps
+        if name in ("cpu", "cuda"):  # the Evaluator's val sweep after 3
             val = DDICollator(ds, split="val", seed=0, device=dev)(
                 splits["val"], build_kg=False)[0]
             ev = Evaluator(trainer.model, cfg.finetune_mode)
@@ -931,18 +1026,25 @@ def phase_train_small():
     n_types = len(ds.kg_edge_indices)
     per_step = k2_launches_per_step(list(ds.kg_edge_indices),
                                     cfg.model.encoder.hgt.num_layers)
-    require(launches["cuda"]["sorted_segment_sum"] == 3 * per_step
+    require(narrow.model.encoder.hgt.num_layers
+            == cfg.model.encoder.hgt.num_layers
+            and all(launches[n]["sorted_segment_sum"] == runs[n][2] * per_step
+                    for n in ("cuda", "cuda_radam", "cuda_lars"))
             and launches["cuda_plain_bwd"]["sorted_segment_sum"] == 0,
             f"train_small: K2 launches {launches}, expected {per_step} "
             "per step")
-    loss_err = 0.0
-    for lc, lg in zip(losses["cpu"], losses["cuda"]):
-        for k in lc:
-            rel = abs(lg[k] - lc[k]) / abs(lc[k])
-            require(np.isfinite(lg[k]) and rel <= 1e-4,
-                    f"train_small: loss {k} on the card {lg[k]} against "
-                    f"{lc[k]} on the CPU")
-            loss_err = max(loss_err, rel)
+    loss_err = {}
+    for opt, (cpu, card) in {"adamw": ("cpu", "cuda"),
+                             "radam": ("cpu_radam", "cuda_radam"),
+                             "lars": ("cpu_lars", "cuda_lars")}.items():
+        loss_err[opt] = 0.0
+        for lc, lg in zip(losses[cpu], losses[card]):
+            for k in lc:
+                rel = abs(lg[k] - lc[k]) / abs(lc[k])
+                require(np.isfinite(lg[k]) and rel <= 1e-4,
+                        f"train_small ({opt}): loss {k} on the card "
+                        f"{lg[k]} against {lc[k]} on the CPU")
+                loss_err[opt] = max(loss_err[opt], rel)
     grad_err = 0.0
     for k, g in grads["cuda"].items():
         ref = grads["cuda_plain_bwd"][k]
@@ -966,7 +1068,11 @@ def phase_train_small():
             metric_err = max(metric_err, abs(got - want))
     emit({"phase": "train_small", "drugs": ds.num_drugs,
           "outcomes": ds.num_labels, "kg_edge_types": n_types,
-          "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+          "optim_steps": OPTIM_STEPS,
+          "optim_widths": {"feature_dim": narrow.model.encoder.feature_dim,
+                           "hgt": narrow.model.encoder.hgt.hidden_dim},
+          "losses_cuda": {n: losses[n] for n in runs if n.startswith("cuda")},
+          "losses_cpu": {n: losses[n] for n in runs if n.startswith("cpu")},
           "max_rel_loss_err_vs_cpu": loss_err,
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
           "val_key_cuda": key_g, "val_key_cpu": key_c,
@@ -975,13 +1081,14 @@ def phase_train_small():
 
 
 def train_argv(memory_flags, epochs: int, save_dir: Path,
-               seed: int = 0, evaluate_interval: int = 0) -> list:
+               seed: int = 0, evaluate_interval: int = 0,
+               shrink: int = TRAIN_SHRINK) -> list:
     """The training CLI's arguments at the flagship configuration on the
-    reference scale divided by TRAIN_SHRINK; with an evaluate_interval,
-    also the test pass."""
+    reference scale divided by `shrink`; with an evaluate_interval, also
+    the test pass."""
     return config_overrides(flagship_config(NUM_LABELS)) + [
         *memory_flags, "--platform", "cuda", "--synthetic_scale",
-        "--synthetic_scale_shrink", str(TRAIN_SHRINK),
+        "--synthetic_scale_shrink", str(shrink),
         "--finetune_mode", "str_random_sample", "--label_chunk", "64",
         "--num_epochs", str(epochs),
         "--evaluate_interval", str(evaluate_interval),
@@ -991,21 +1098,26 @@ def train_argv(memory_flags, epochs: int, save_dir: Path,
 
 def phase_training():
     """The training CLI at the flagship configuration on the reference
-    scale divided by TRAIN_SHRINK, with TRAIN_MEMORY_FLAGS, one
+    scale divided by SYNTHETIC_TRAIN_SHRINK, with TRAIN_MEMORY_FLAGS, one
     evaluation sweep on the val split and the test pass."""
     save_dir = WORK / "train"
     if save_dir.exists():
         shutil.rmtree(save_dir)
     argv = train_argv(TRAIN_MEMORY_FLAGS, TRAIN_EPOCHS, save_dir,
-                      evaluate_interval=TRAIN_EVAL_INTERVAL)
+                      evaluate_interval=TRAIN_EVAL_INTERVAL,
+                      shrink=SYNTHETIC_TRAIN_SHRINK)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()  # counts start here
-    t0 = time.perf_counter()
-    res = cli_train_ddi.main(argv)
-    t_cli = time.perf_counter() - t0
-    counts = read_launches()  # counts end here
+    with Recorder() as rec:
+        rec.wrap(cli_common, "make_reference_scale_dataset", keep=True)
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        res = cli_train_ddi.main(argv)
+        t_cli = time.perf_counter() - t0
+        counts = read_launches()  # counts end here
     peak = torch.cuda.max_memory_allocated() / 1e9
+    check_k2_shapes(rec.results["make_reference_scale_dataset"][0]
+                    .kg_edge_indices, SYNTHETIC_TRAIN_SHRINK, "training")
 
     hgt = flagship_config(NUM_LABELS).model.encoder.hgt
     want = k2_launches_per_step(list(reference_scale_kg_sizes()[1]),
@@ -1031,9 +1143,10 @@ def phase_training():
                                       device="cuda")
     require(all(torch.isfinite(t).all() for t in best.state_dict().values()),
             "the best_model checkpoint does not load")
-    emit({"phase": "training", "shrink": TRAIN_SHRINK,
+    emit({"phase": "training", "shrink": SYNTHETIC_TRAIN_SHRINK,
           "memory_flags": TRAIN_MEMORY_FLAGS,
-          "drugs": NUM_DRUGS // TRAIN_SHRINK,
+          "drugs": reference_scale_kwargs(
+              SYNTHETIC_TRAIN_SHRINK)["num_drugs"],
           "outcomes": model.decoder.weight.shape[0],
           "epochs": TRAIN_EPOCHS, "launches": counts,
           "losses": res["losses"], "epoch_s": res["epoch_seconds"],
@@ -1043,6 +1156,317 @@ def phase_training():
           "data_build_s": res["data_seconds"], "cli_s": t_cli,
           "peak_device_mem_gb": peak})
     shutil.rmtree(save_dir)
+    return counts
+
+
+# ------------------------------------------------- reference-format data
+class Recorder:
+    """Wraps functions of a module for one run: keeps each call's seconds
+    and, where asked, its result, and puts the originals back on exit."""
+
+    def __init__(self):
+        self.seconds, self.results, self._undo = {}, {}, []
+
+    def wrap(self, owner, name: str, keep: bool = False):
+        orig = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            self.seconds.setdefault(name, []).append(
+                time.perf_counter() - t0)
+            if keep:
+                self.results.setdefault(name, []).append(out)
+            return out
+
+        setattr(owner, name, wrapped)
+        self._undo.append((owner, name, orig))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+
+def split_rows(ds, seed: int = 0) -> dict:
+    """The 80/10/10 row split of the training CLI's --synthetic_scale path
+    (val, test, train), as EdgeTables."""
+    df = ds.edge_df
+    perm = np.random.RandomState(seed).permutation(len(df))
+    n_hold = len(df) // 10
+    return {"train": df.take(perm[2 * n_hold:]),
+            "val": df.take(perm[:n_hold]),
+            "test": df.take(perm[n_hold:2 * n_hold])}
+
+
+def write_reference_layout(ds, root: Path, split_method: str) -> dict:
+    """`ds` on disk in the reference layout through the port's exporter,
+    its rows split 80/10/10 into split_method's train/val/test tables;
+    returns the split."""
+    splits = split_rows(ds)
+    ds.edge_df = splits["train"]
+    datasets.export_synthetic_as_reference_layout(ds, str(root),
+                                                  split_method=split_method)
+    for name in ("val", "test"):
+        datasets.write_edge_table(splits[name], str(
+            root / "polypharmacy_new" / "TWOSIDES" / split_method
+            / f"{name}_df.csv"))
+    return splits
+
+
+def check_loaded(got, want) -> None:
+    """Every array of the loaded dataset but the molecules equals the
+    dataset written, exactly."""
+    require((got.num_drugs, got.num_labels) == (want.num_drugs,
+                                                want.num_labels),
+            f"loaded {got.num_drugs} drugs, {got.num_labels} outcomes")
+    for name in ("mod_avail", "cv_table", "tx_table", "tx_dosages",
+                 "kg_drug_ids"):
+        require(np.array_equal(getattr(got, name), getattr(want, name)),
+                f"loaded {name} differs from the dataset written")
+    for attr in ("kg_node_feats", "kg_edge_indices"):
+        a, b = getattr(got, attr), getattr(want, attr)
+        require(list(a) == list(b) and all(np.array_equal(a[k], b[k])
+                                           for k in b),
+                f"loaded {attr} differs from the dataset written")
+    require(got.edge_df.columns == want.edge_df.columns and all(
+        np.array_equal(got.edge_df[c], want.edge_df[c])
+        for c in want.edge_df.columns),
+            "the loaded train table differs from the one written")
+
+
+def stage2_checkpoint(cfg, ds, path: str) -> dict:
+    """A stage-2 checkpoint of a random flagship encoder (seed 2) under
+    `base_encoder.`, with the modules the warm start drops and random
+    BatchNorm statistics (which it must not take), and a projection head
+    the finetune model lacks. Returns its entries."""
+    enc = random_model(cfg, ds, seed=2).encoder
+    g = torch.Generator().manual_seed(2)
+    sd = {}
+    for k, v in enc.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        sd["base_encoder." + k] = v
+    sd["predictor.dense_0.weight"] = torch.randn(D, D, generator=g)
+    save_checkpoint(path, sd, C.PretrainConfig(), epoch=0)
+    return sd
+
+
+def check_warm_start(start: dict, cfg, ds, stage2: dict) -> dict:
+    """The model as the trainer received it against the checkpoint (the
+    encoder parameters it keeps, the uni projector too under
+    --use_pretrained_adaptor) and against the run's own fresh init (the
+    dropped modules, the decoder and every BatchNorm statistic), exactly.
+    Returns the counts of each."""
+    fresh = init_weights(build_model(
+        finetune.training_model_config(cfg),
+        *kg_schema(ds.kg_node_feats, ds.kg_edge_indices), device="cpu"),
+        torch.Generator().manual_seed(cfg.seed)).state_dict()
+    require(set(start) == set(fresh), "the trained model has other entries")
+    counts = {"from_checkpoint": 0, "fresh": 0}
+    for k, v in start.items():
+        top = k.split(".")[1] if k.startswith("encoder.") else None
+        taken = (top is not None and top not in CL_TRANSFER_DROP_TOP
+                 and not k.endswith(("running_mean", "running_var",
+                                     "num_batches_tracked")))
+        want = stage2["base_encoder." + k[len("encoder."):]] if taken \
+            else fresh[k]
+        require(torch.equal(v, want),
+                f"warm start: {k} is not the "
+                f"{'checkpoint' if taken else 'fresh init'}'s")
+        counts["from_checkpoint" if taken else "fresh"] += 1
+    return counts
+
+
+def data_dir_argv(root: Path, save_dir: Path, epochs: int,
+                  extra=()) -> list:
+    """The training CLI at the flagship configuration on a reference-format
+    directory, with TRAIN_MEMORY_FLAGS and DATA_DIR_OPTIMIZER."""
+    return config_overrides(flagship_config(NUM_LABELS)) + [
+        *TRAIN_MEMORY_FLAGS, "--set", f"optim.optimizer={DATA_DIR_OPTIMIZER}",
+        "--platform", "cuda", "--data_dir", str(root),
+        "--finetune_mode", "str_random_sample", "--label_chunk", "64",
+        "--num_epochs", str(epochs), "--seed", "0",
+        "--save_dir", str(save_dir), *extra]
+
+
+def phase_data_dir() -> dict:
+    """Reference-format data at full scale: the reference-scale dataset
+    written in the reference layout by the port's exporter, then the
+    training CLI on it (--data_dir) warm-started from a stage-2 checkpoint
+    (--checkpoint, --use_pretrained_adaptor) with DATA_DIR_OPTIMIZER for
+    DATA_DIR_EPOCHS epochs, one evaluation sweep and the test pass (K2's
+    counts set to 0 just before, read just after); the data it loaded
+    against the dataset written, the native featurizer against the
+    built-in one, the model the trainer received against the checkpoint
+    and the fresh init; then the serving CLI on the trained model and the
+    same directory. Returns (the training run's counts, the serving
+    run's)."""
+    work = WORK / "data_dir"
+    if work.exists():
+        shutil.rmtree(work)
+    root, save_dir = work / "reference", work / "train"
+    t0 = time.perf_counter()
+    ds = make_reference_scale_dataset(seed=0)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    splits = write_reference_layout(ds, root, "split_by_triplets")
+    t_export = time.perf_counter() - t0
+    tx_bytes = (root / "views_features_new" / "tx" / "tx.csv").stat().st_size
+    cfg = flagship_config(NUM_LABELS)
+    stage2 = stage2_checkpoint(cfg, ds, str(work / "stage2.pt"))
+
+    starts = []
+    orig_init = finetune.FinetuneTrainer.__init__
+
+    def snapshot(self, cfg_, batch, kg, model):
+        starts.append({k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()})
+        orig_init(self, cfg_, batch, kg, model)
+
+    argv = data_dir_argv(root, save_dir, DATA_DIR_EPOCHS, (
+        "--checkpoint", str(work / "stage2.pt"), "--use_pretrained_adaptor",
+        "--evaluate_interval", "1", "--test"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        rec.wrap(datasets, "load_reference_dataset", keep=True)
+        rec.wrap(datasets, "read_signature_table")
+        rec.wrap(datasets, "load_edge_table")
+        finetune.FinetuneTrainer.__init__ = snapshot
+        try:
+            reset_launches()  # counts start here
+            t0 = time.perf_counter()
+            res = cli_train_ddi.main(argv)
+            t_cli = time.perf_counter() - t0
+            counts = read_launches()  # counts end here
+        finally:
+            finetune.FinetuneTrainer.__init__ = orig_init
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    loaded = rec.results["load_reference_dataset"][0]
+    check_loaded(loaded, ds)
+    check_k2_shapes(loaded.kg_edge_indices, TRAIN_SHRINK, "data_dir")
+    run_cfg = load_checkpoint(res["checkpoint"])[1]
+    warm = check_warm_start(starts[0], run_cfg, ds, stage2)
+    hgt = cfg.model.encoder.hgt
+    want = k2_launches_per_step(list(ds.kg_edge_indices),
+                                hgt.num_layers) * DATA_DIR_EPOCHS
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": want},
+            f"data_dir: launches {counts}, expected {want} of K2")
+    require(len(res["losses"]) == DATA_DIR_EPOCHS
+            and all(np.isfinite(v) for l in res["losses"]
+                    for v in l.values())
+            and len(res["eval_keys"]) == 1
+            and np.isfinite(res["eval_keys"][0])
+            and np.isfinite(res["test_keys"].get("test", np.nan)),
+            f"data_dir: losses {res['losses']}, val {res['eval_keys']}, "
+            f"test {res['test_keys']}")
+
+    # the molecules: the native featurizer against the built-in one, which
+    # the CLI's loader ran (the card's machine has no RDKit)
+    require(not _rdkit_available(),
+            "the loader featurized with RDKit, not the built-in parser")
+    smiles = datasets._read_metadata(str(root)).strings("canonical_smiles")
+    t0 = time.perf_counter()
+    mols = featurize_many(smiles, backend="native")
+    t_native = time.perf_counter() - t0
+    require(len(mols) == len(loaded.molecules) and all(
+        m is not None and all(np.array_equal(m[k], w[k]) for k in w)
+        for m, w in zip(mols, loaded.molecules)),
+            "native featurization differs from the built-in one")
+
+    predict = predict_data_dir(root, save_dir / "best_model", work)
+    emit({"phase": "data_dir", "drugs": loaded.num_drugs,
+          "outcomes": loaded.num_labels,
+          "train_rows": len(loaded.edge_df),
+          "eval_rows": {k: len(v) for k, v in splits.items()
+                        if k != "train"},
+          "kg_edges": int(sum(e.shape[1]
+                              for e in loaded.kg_edge_indices.values())),
+          "tx_csv_bytes": tx_bytes, "optimizer": DATA_DIR_OPTIMIZER,
+          "memory_flags": TRAIN_MEMORY_FLAGS, "launches": counts,
+          "warm_start": warm, "losses": res["losses"],
+          "data_build_s": t_build, "export_s": t_export,
+          "load_s": rec.seconds["load_reference_dataset"],
+          "signature_tables_s": rec.seconds["read_signature_table"],
+          "split_tables_s": rec.seconds["load_edge_table"],
+          "featurize_native_s": t_native, "cli_data_s": res["data_seconds"],
+          "epoch_s": res["epoch_seconds"], "eval_s": res["eval_seconds"],
+          "val_key_auprc": res["eval_keys"], "test_s": res["test_seconds"],
+          "test_key_auprc": res["test_keys"], "cli_s": t_cli,
+          "peak_device_mem_gb": peak, "predict": predict})
+    shutil.rmtree(work)
+    return counts, predict["launches"]
+
+
+def predict_data_dir(root: Path, ckpt: Path, work: Path) -> dict:
+    """The serving CLI on the trained model and the reference-format
+    directory: its triple answers against the exported embeddings and the
+    checkpoint's decoder, within 1e-4 of the largest (K1 is not on this
+    path: triples are scored one by one)."""
+    emb = str(work / "z.npy")
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    answers = np.asarray(cli_predict.main([
+        "--checkpoint", str(ckpt), "--data_dir", str(root),
+        "--platform", "cuda", "--label_chunk", str(LABEL_CHUNK),
+        "--export_embeddings", emb, "--triples", *TRIPLES]))
+    t_cli = time.perf_counter() - t0
+    counts = read_launches()  # counts end here
+    z = np.load(emb).astype(np.float64)
+    model, _ = P.model_from_checkpoint(str(ckpt), device="cpu")
+    w = P.decoder_weight(model).detach().numpy().astype(np.float64)
+    want = np.array([z[a] @ w[l] @ z[b] for l, a, b in
+                     (map(int, t.split(":")) for t in TRIPLES)])
+    err = float(np.abs(answers - want).max())
+    require(z.shape == (NUM_DRUGS, D) and np.isfinite(z).all()
+            and err <= 1e-4 * np.abs(want).max(),
+            f"data_dir serving: triples {answers} against {want}")
+    return {"cli_s": t_cli, "triple_max_abs_err": err, "launches": counts}
+
+
+def phase_all_train() -> dict:
+    """The training CLI with --all_train on reference-format data at the
+    reference scale / ALL_TRAIN_SHRINK for ALL_TRAIN_EPOCHS epoch: it
+    trains on the union of the split_by_pairs train/val/test tables, with
+    K2's counts set to 0 just before and read just after."""
+    work = WORK / "all_train"
+    if work.exists():
+        shutil.rmtree(work)
+    ds = make_reference_scale_dataset(
+        seed=0, **reference_scale_kwargs(ALL_TRAIN_SHRINK))
+    rows = len(ds.edge_df)
+    write_reference_layout(ds, work / "reference", "split_by_pairs")
+    with Recorder() as rec:
+        rec.wrap(datasets, "load_reference_all_train", keep=True)
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        res = cli_train_ddi.main(data_dir_argv(
+            work / "reference", work / "train", ALL_TRAIN_EPOCHS,
+            ("--all_train", "--evaluate_interval", "0")))
+        t_cli = time.perf_counter() - t0
+        counts = read_launches()  # counts end here
+    trained = rec.results["load_reference_all_train"][0]
+    check_k2_shapes(trained.kg_edge_indices, ALL_TRAIN_SHRINK, "all_train")
+    hgt = flagship_config(NUM_LABELS).model.encoder.hgt
+    want = k2_launches_per_step(list(ds.kg_edge_indices),
+                                hgt.num_layers) * ALL_TRAIN_EPOCHS
+    require(len(trained.edge_df) == rows
+            and counts == {"bilinear_scores": 0, "sorted_segment_sum": want}
+            and len(res["losses"]) == ALL_TRAIN_EPOCHS
+            and all(np.isfinite(v) for l in res["losses"]
+                    for v in l.values()),
+            f"all_train: {len(trained.edge_df)} rows of {rows}, launches "
+            f"{counts} (K2 {want}), losses {res['losses']}")
+    emit({"phase": "all_train", "shrink": ALL_TRAIN_SHRINK,
+          "drugs": trained.num_drugs, "train_rows": len(trained.edge_df),
+          "launches": counts, "losses": res["losses"],
+          "epoch_s": res["epoch_seconds"], "cli_data_s": res["data_seconds"],
+          "cli_s": t_cli})
+    shutil.rmtree(work)
     return counts
 
 
@@ -1086,16 +1510,25 @@ def phase_train_memory() -> None:
         print(lines[-1], flush=True)
 
 
-def phase_build() -> None:
+def phase_build(native: bool = False) -> None:
     """Both kernels from their sources, the two nvcc processes started
-    together; nvcc's -Xptxas -v report goes to standard output."""
+    together; nvcc's -Xptxas -v report goes to standard output. With
+    `native`, the SMILES featurizer's library is built by g++ beside
+    them."""
     seconds = {}
-    libs = _build.build(["bilinear", "segment_sum"], verbose=True,
-                        seconds=seconds)
-    for kernel, src in (("bilinear_scores", "bilinear"),
-                        ("sorted_segment_sum", "segment_sum")):
-        emit({"phase": "build", "kernel": kernel, "library": libs[src].name,
-              "seconds": seconds[src]})
+    with ThreadPoolExecutor(1) as pool:
+        if native:
+            t0 = time.perf_counter()
+            lib = pool.submit(native_featurizer.build_native)
+        libs = _build.build(["bilinear", "segment_sum"], verbose=True,
+                            seconds=seconds)
+        for kernel, src in (("bilinear_scores", "bilinear"),
+                            ("sorted_segment_sum", "segment_sum")):
+            emit({"phase": "build", "kernel": kernel,
+                  "library": libs[src].name, "seconds": seconds[src]})
+        if native:
+            emit({"phase": "build", "library": Path(lib.result()).name,
+                  "seconds": time.perf_counter() - t0})
 
 
 def main(argv) -> int:
@@ -1133,7 +1566,7 @@ def main(argv) -> int:
         wall[name] = time.perf_counter() - t0
         return res
 
-    run("build", phase_build)
+    run("build", phase_build, argv == [])
     if argv == ["--kernels"]:
         phase_kernels()
         phase_k2_kernels()
@@ -1151,7 +1584,12 @@ def main(argv) -> int:
                                     phase_predict_ensemble)
     run("train_small", phase_train_small)
     paths["training"] = run("training", phase_training)
+    # collected before the phases that write and parse the large csv
+    # files, which would otherwise share the host's cores with them
     run("ranks_references", finish_ranks)
+    paths["data_dir"], paths["predict_data_dir"] = run("data_dir",
+                                                       phase_data_dir)
+    paths["all_train"] = run("all_train", phase_all_train)
     emit({"phase": "wall", "seconds": wall,
           "main_s": time.perf_counter() - t_start})
 
@@ -1171,8 +1609,8 @@ def main(argv) -> int:
 
     # K1: timed last at the all-pairs bench shape, bf16 in and out, and
     # launched on the serving, rank and ensemble paths; K2: timed last at
-    # the training run's largest edge type, at the shape that run gives
-    # it, and launched on the training path. `launches` sums the paths,
+    # the full-scale training run's largest edge type, at the shape that
+    # run gives it, and launched on the training paths. `launches` sums the paths,
     # each counted from 0 just before it and read just after
     emit({"kernels": [
         entry("bilinear_scores", "madrigal_tpu_torch/csrc/bilinear.cu",

@@ -8,7 +8,9 @@ the HGT's source-gather backward is the plain `index_add_` instead of
 kernel K2; serving runs no backward and never builds that layout.
 `--from_yaml` and `--set` override a training config (`apply_overrides`;
 the YAML loader needs pyyaml, `--set` nothing); serving takes its config
-from the checkpoint.
+from the checkpoint. `--data_dir` reads a reference-format data directory
+(`data/datasets.py`): serving and training both take its drugs, KG and
+`split_by_triplets/train_df.csv`.
 """
 from __future__ import annotations
 
@@ -120,7 +122,9 @@ def reference_scale_dataset(args: argparse.Namespace) -> SyntheticDataset:
 
 def load_data(args: argparse.Namespace, device: torch.device
               ) -> Tuple[SyntheticDataset, DDICollator]:
-    """The serving dataset and its collator. The KG batch has the plain
+    """The serving dataset and its collator: --synthetic_scale, the small
+    synthetic dataset, or --data_dir's reference-format data (the loader's
+    defaults: TWOSIDES, split_by_triplets, train). The KG batch has the plain
     layout only: the source-sorted one serves the training backward, and
     its host argsorts would only delay the first score."""
     if args.synthetic_scale:
@@ -133,8 +137,8 @@ def load_data(args: argparse.Namespace, device: torch.device
             seed=args.seed,
         )
     else:
-        raise NotImplementedError(
-            "--data_dir: reference-format data loading (data/datasets.py) "
-            "is not ported yet (ROADMAP)")
+        from ..data.datasets import load_reference_dataset
+
+        ds = load_reference_dataset(args.data_dir)
     coll = DDICollator(ds, split="train", seed=args.seed, device=device)
     return ds, coll

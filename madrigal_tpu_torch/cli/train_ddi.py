@@ -11,9 +11,13 @@ Usage:
       --finetune_mode str_random_sample --evaluate_interval 10 --test
   (add --platform cpu to run without a card)
 
-It takes the JAX CLI's flags. Not ported yet, and raising
-NotImplementedError before training starts: `--checkpoint` (a stage-2
-warm start), `--all_train` and `--data_dir`. `--eval_types` narrows
+It takes the JAX CLI's flags. `--data_dir` trains on a reference-format
+data directory (`data/datasets.py`) and evaluates on its held-out split
+tables, `--all_train` trains on the union of the split_by_pairs tables,
+and `--checkpoint` warm-starts the encoders from a stage-2 checkpoint
+(`--use_pretrained_adaptor` also keeps its uni projector; a JAX stage-2
+run is carried over with `interop.from_flax.stage2_checkpoint_from_flax`).
+`--eval_types` narrows
 every sweep to the given eval types. The memory flags act as in the JAX
 package:
 `--fusion_remat` / `--fusion_remat_policy` rematerialize the fusion
@@ -44,11 +48,9 @@ from .common import (
     setup_platform,
 )
 
-_UNPORTED = {
-    "checkpoint": "stage-2 modules (the contrastive-pretrain warm start)",
-    "all_train": "reference-format data loading (data/datasets.py)",
-    "data_dir": "reference-format data loading (data/datasets.py)",
-}
+# the held-out split tables a --data_dir run evaluates on, where present
+DATA_DIR_EVAL_SPLITS = ("val", "test", "val_between", "val_within",
+                        "test_between", "test_within")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,12 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluate_interval", type=int, default=None,
                    help="epochs between evaluation sweeps (0: none)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="CL-pretrain checkpoint to warm-start encoders "
-                        "from (not ported yet)")
-    p.add_argument("--use_pretrained_adaptor", action="store_true")
+                   help="stage-2 (contrastive pretraining) checkpoint to "
+                        "warm-start the encoders from")
+    p.add_argument("--use_pretrained_adaptor", action="store_true",
+                   help="with --checkpoint, also take its uni projector")
     p.add_argument("--train_with_str_str", action="store_true")
     p.add_argument("--all_train", action="store_true",
-                   help="train on the union of all splits (not ported yet)")
+                   help="train on the union of all splits "
+                        "(train_ddi_batch_all_train.py analog)")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint of this CLI to resume from (weights, "
                         "batch statistics, optimizer state, epoch)")
@@ -156,14 +160,38 @@ def build_config(args: argparse.Namespace, num_labels: int) -> TrainConfig:
 
 
 def _load_train_data(args, device):
-    """(dataset with the train rows, train collator, {split: rows}): the
-    reference-scale data split 80/10/10 by rows (val, test, train) and
-    collated against the full drug table, or the small synthetic
-    dataset's split family."""
+    """(dataset with the train rows, train collator, {split: rows}), as
+    the JAX CLI chooses them:
+
+    * --all_train: the union of the split_by_pairs train/val/test tables
+      of --data_dir, with no held-out split; without --data_dir (or with
+      --synthetic), of the small synthetic dataset's split_by_pairs
+      splits, which are then also evaluated on;
+    * --synthetic_scale: the reference-scale data split 80/10/10 by rows
+      (val, test, train) and collated against the full drug table;
+    * --synthetic, or no --data_dir: the small synthetic dataset's split
+      family;
+    * --data_dir: the reference-format data. It trains on
+      split_by_triplets/train_df.csv whatever --split_method says, as the
+      JAX CLI does (its data loading takes the loader's defaults), and
+      evaluates on --split_method's held-out tables that are present."""
     from ..data.collate import DDICollator
     from ..data.synthetic import make_split_dataset
 
-    if args.synthetic_scale:
+    full_drug_table = False
+    if args.all_train and args.data_dir and not args.synthetic:
+        from ..data.datasets import load_reference_all_train
+
+        ds, splits = load_reference_all_train(args.data_dir), {}
+    elif args.all_train:
+        from ..data.datasets import union_edge_tables
+
+        ds, splits = make_split_dataset(
+            num_drugs=args.synthetic_drugs, num_labels=args.synthetic_labels,
+            num_edges=args.synthetic_edges, split_method="split_by_pairs",
+            seed=args.seed)
+        ds.edge_df = union_edge_tables(list(splits.values()))
+    elif args.synthetic_scale:
         ds = reference_scale_dataset(args)
         df = ds.edge_df
         perm = np.random.RandomState(args.seed).permutation(len(df))
@@ -171,18 +199,28 @@ def _load_train_data(args, device):
         splits = {"val": df.take(perm[:n_hold]),
                   "test": df.take(perm[n_hold:2 * n_hold])}
         ds.edge_df = df.take(perm[2 * n_hold:])
-        return ds, DDICollator(ds, split="train", seed=args.seed,
-                               device=device,
-                               kg_src_sort=not args.no_src_mxu,
-                               drug_table_cache={},
-                               full_drug_table=True), splits
-    ds, splits = make_split_dataset(
-        num_drugs=args.synthetic_drugs, num_labels=args.synthetic_labels,
-        num_edges=args.synthetic_edges, split_method=args.split_method,
-        seed=args.seed)
+        full_drug_table = True
+    elif args.synthetic or not args.data_dir:
+        ds, splits = make_split_dataset(
+            num_drugs=args.synthetic_drugs, num_labels=args.synthetic_labels,
+            num_edges=args.synthetic_edges, split_method=args.split_method,
+            seed=args.seed)
+    else:
+        from ..data.datasets import load_edge_table, load_reference_dataset
+
+        ds = load_reference_dataset(args.data_dir)
+        splits = {}
+        for split in DATA_DIR_EVAL_SPLITS:
+            try:
+                splits[split] = load_edge_table(
+                    args.data_dir, split_method=args.split_method,
+                    split=split)
+            except FileNotFoundError:
+                pass
     return ds, DDICollator(ds, split="train", seed=args.seed, device=device,
                            kg_src_sort=not args.no_src_mxu,
-                           drug_table_cache={}), splits
+                           drug_table_cache={},
+                           full_drug_table=full_drug_table), splits
 
 
 def _sync(device: torch.device) -> None:
@@ -198,10 +236,6 @@ def main(argv=None) -> dict:
     early), "test_keys" ({split: key metric of the best model}) and
     "test_seconds"}."""
     args = build_parser().parse_args(argv)
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP: {item})")
     device = setup_platform(args)
 
     from ..data.collate import DDICollator
@@ -215,8 +249,9 @@ def main(argv=None) -> dict:
         load_checkpoint,
         load_train_state,
         save_checkpoint,
+        warm_start_encoder,
     )
-    from ..train.finetune import FinetuneTrainer
+    from ..train.finetune import FinetuneTrainer, training_model_config
     from ..utils.logging import MetricLogger, get_root_logger
 
     os.makedirs(args.save_dir, exist_ok=True)
@@ -232,10 +267,16 @@ def main(argv=None) -> dict:
     logger.info(f"config:\n{config_lib.dumps(cfg)}")
 
     batch, kg = coll()
-    model = build_model(cfg.model,
+    model = build_model(training_model_config(cfg),
                         *kg_schema(ds.kg_node_feats, ds.kg_edge_indices),
                         device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if args.checkpoint:
+        stage2, _ = load_checkpoint(args.checkpoint)
+        kept = warm_start_encoder(model, stage2, args.use_pretrained_adaptor)
+        logger.info(f"warm-started {len(kept)} encoder parameters from "
+                    f"{args.checkpoint} (uni projector "
+                    f"{'kept' if args.use_pretrained_adaptor else 'fresh'})")
     if args.resume:
         model.load_state_dict(load_checkpoint(args.resume)[0], strict=True)
     trainer = FinetuneTrainer(cfg, batch, kg, model.to(device))

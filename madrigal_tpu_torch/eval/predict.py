@@ -41,6 +41,7 @@ from ..models.encoder import (
 )
 from ..ops.bilinear import bilinear_scores
 from ..train.checkpoint import load_checkpoint
+from ..train.finetune import training_model_config
 from .masks import get_evaluate_masks
 
 logger = logging.getLogger(__name__)
@@ -66,7 +67,7 @@ def model_from_checkpoint(path: str, device=None):
     dev = resolve_device(device)
     sd, cfg = load_checkpoint(path)
     if isinstance(cfg, TrainConfig):
-        model_cfg = cfg.model
+        model_cfg = training_model_config(cfg)
     elif isinstance(cfg, ModelConfig):
         model_cfg = cfg
     else:

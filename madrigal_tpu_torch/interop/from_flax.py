@@ -83,3 +83,30 @@ def load_flax_weights(module: torch.nn.Module, variables: Mapping,
     sd = flax_to_state_dict(variables, prefix)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def stage2_checkpoint_from_flax(variables: Mapping, path: str, cfg,
+                                epoch: int = 0) -> None:
+    """Write a JAX stage-2 (contrastive pretraining) run's variables as a
+    port checkpoint that `cli.train_ddi --checkpoint` warm-starts from.
+
+    `variables` is {'params': ..., 'batch_stats': ...} of the JAX
+    package's SimCLR model as numpy (the encoder under `base_encoder`),
+    and `cfg` the run's config as the port's dataclass. Every module is
+    kept: `base_encoder` with the fusion modules and the uni projector
+    that the warm start may drop, and the projection heads. Until stage 2
+    is ported this is how a JAX stage-2 run reaches the card; in a
+    process that has the JAX package:
+
+        tree, meta = madrigal_tpu.train.checkpoint.load_checkpoint(run)
+        cfg = config.from_dict(getattr(config, meta["config_class"]),
+                               meta["config"])
+        stage2_checkpoint_from_flax(
+            {"params": tree["params"],
+             "batch_stats": tree.get("batch_stats", {})},
+            "stage2.pt", cfg, epoch=meta["epoch"])
+
+    (`config` is `madrigal_tpu_torch.config`.)"""
+    from ..train.checkpoint import save_checkpoint
+
+    save_checkpoint(path, flax_to_state_dict(variables), cfg, epoch=epoch)

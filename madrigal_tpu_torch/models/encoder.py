@@ -21,7 +21,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from ..config import EncoderConfig
+from .. import config as config_lib
+from ..config import EncoderConfig, MLPEncoderConfig
 from ..constants import NUM_CELL_LINES
 from ..data.batch import DrugModalityBatch
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
@@ -66,9 +67,6 @@ class MadrigalEncoder(nn.Module):
             raise NotImplementedError(
                 f"kg_encoder={c.kg_encoder!r}: only 'hgt' is ported "
                 "(ROADMAP: alternatives and extras)")
-        if c.extra_tabular:
-            raise NotImplementedError(
-                "extra tabular modalities are not ported yet (ROADMAP)")
         if c.fusion not in ("transformer_uni_proj", "transformer", "mean",
                             "add"):
             raise NotImplementedError(c.fusion)
@@ -81,6 +79,17 @@ class MadrigalEncoder(nn.Module):
         self.kg_encoder = HGTEncoder(c.hgt, c.feature_dim, kg_node_dims,
                                      kg_edge_types, drug_only_head=True)
         self.cv_encoder = _mlp(c.cv.input_dim, c.feature_dim, c.cv)
+        # one MLP a non-tx tabular modality beyond str/kg/cv (the
+        # NON_TX_MODALITIES environment variable, e.g. 'bs'); its token
+        # follows cv's, in sorted modality order. A config read back from
+        # a dict holds each modality's MLPEncoderConfig as a dict.
+        self.extra_tabular = sorted(c.extra_tabular)
+        for mod in self.extra_tabular:
+            mc = c.extra_tabular[mod]
+            if not isinstance(mc, MLPEncoderConfig):
+                mc = config_lib.from_dict(MLPEncoderConfig, mc)
+            self.add_module(f"tab_encoder_{mod}",
+                            _mlp(mc.input_dim, c.feature_dim, mc))
         if c.tx_encoder == "chemcpa":
             self.tx_encoder = ChemCPAEncoder(c.chemcpa)
         elif c.tx_encoder == "mlp":
@@ -132,6 +141,8 @@ class MadrigalEncoder(nn.Module):
         kg_out = kg_drug_table[rows].masked_fill(
             (batch.kg_rows < 0)[:, None], 0.0)
         cv_out = self.cv_encoder(batch.cv)
+        extra_out = [getattr(self, f"tab_encoder_{mod}")(
+            batch.extra_tabular[mod]) for mod in self.extra_tabular]
 
         C, B = batch.tx_sigs.shape[0], batch.batch_size
         if c.tx_encoder == "chemcpa":
@@ -145,7 +156,8 @@ class MadrigalEncoder(nn.Module):
                 return_basal=c.use_tx_basal).reshape(C, B, -1)
         else:
             tx_tokens = self.tx_encoder(batch.tx_sigs)
-        return torch.stack([str_out, kg_out, cv_out] + list(tx_tokens), dim=1)
+        return torch.stack([str_out, kg_out, cv_out] + extra_out
+                           + list(tx_tokens), dim=1)
 
     def forward(self, batch, kg=None, kg_drug_table=None,
                 raw_encoder_output: bool = False):
@@ -221,7 +233,9 @@ class MadrigalEncoder(nn.Module):
 
 class MadrigalMultilabel(nn.Module):
     """Encoder + symmetric bilinear decoder (reference NovelDDIMultilabel,
-    models.py:914-953)."""
+    models.py:914-953), and with prediction_dim_single_drug a single-drug
+    side-effect head on the fused embedding (the ONSIDES path; reference
+    models.py:915-921)."""
 
     def __init__(self, enc_cfg: EncoderConfig, prediction_dim: int,
                  kg_node_dims: Dict[str, int],
@@ -229,13 +243,13 @@ class MadrigalMultilabel(nn.Module):
                  decoder_normalize: bool = False,
                  prediction_dim_single_drug: Optional[int] = None):
         super().__init__()
-        if prediction_dim_single_drug:
-            raise NotImplementedError(
-                "the single-drug head is not ported yet (ROADMAP)")
         self.decoder_normalize = decoder_normalize
         self.encoder = MadrigalEncoder(enc_cfg, kg_node_dims, kg_edge_types)
         self.decoder = BilinearDDIScorer(prediction_dim, enc_cfg.feature_dim,
                                          enc_cfg.feature_dim)
+        if prediction_dim_single_drug:
+            self.single_drug_head = nn.Linear(enc_cfg.feature_dim,
+                                              prediction_dim_single_drug)
 
     def embed_pair(self, head, tail, kg=None, kg_drug_table=None):
         """Encode head and tail batches, sharing one KG message pass."""
@@ -262,6 +276,12 @@ class MadrigalMultilabel(nn.Module):
         return self.decoder.triples(z_head[head_idx.long()],
                                     z_tail[tail_idx.long()], labels,
                                     chunk_labels, label_chunk)
+
+    def score_single_drug(self, batch, kg):
+        """[N, L_single] single-drug side-effect logits of a drug batch."""
+        table = self.encoder.kg_drug_table(kg)
+        z = self.encoder.encode(batch, kg_drug_table=table)
+        return self.single_drug_head(z)
 
 
 def kg_schema_from_state_dict(state_dict: Dict[str, torch.Tensor]):

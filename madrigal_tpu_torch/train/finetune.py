@@ -28,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..config import TrainConfig
+from ..config import ModelConfig, TrainConfig
 from ..constants import NON_TX_MODALITIES
 from ..data.collate import DDIBatch
 from ..data.kg import HeteroKGBatch
@@ -74,17 +74,30 @@ def label_chunk_view(batch: DDIBatch, chunk: int, align: int = 8192):
     return view, torch.from_numpy(lab_arena[::chunk].copy()).to(dev)
 
 
+def training_model_config(cfg: TrainConfig) -> ModelConfig:
+    """The model a stage-3 run builds (JAX finetune.py:104-112): with the
+    single-drug head only under use_single_drug. Nothing in the step
+    trains the head; it is decayed with the rest of its group."""
+    if cfg.use_single_drug:
+        return cfg.model
+    return dataclasses.replace(cfg.model, prediction_dim_single_drug=None)
+
+
 class FinetuneTrainer:
-    """Stage-3 trainer of `model` (a MadrigalMultilabel on the batch's
-    device, put in train mode) over one collated batch and its KG batch.
-    Optimizer state starts fresh."""
+    """Stage-3 trainer of `model` (a MadrigalMultilabel built from
+    training_model_config(cfg), on the batch's device, put in train mode)
+    over one collated batch and its KG batch. Optimizer state starts
+    fresh."""
 
     def __init__(self, cfg: TrainConfig, batch: DDIBatch, kg: HeteroKGBatch,
                  model: MadrigalMultilabel):
-        if cfg.use_single_drug:
-            raise NotImplementedError(
-                "use_single_drug: the single-drug head is not ported yet "
-                "(ROADMAP)")
+        want_head = bool(training_model_config(cfg).prediction_dim_single_drug)
+        if want_head != hasattr(model, "single_drug_head"):
+            raise ValueError(
+                f"use_single_drug={cfg.use_single_drug} with "
+                f"prediction_dim_single_drug="
+                f"{cfg.model.prediction_dim_single_drug}: build the model "
+                "from training_model_config(cfg)")
         if cfg.loss_fn_name != "bce" or cfg.task != "multilabel":
             raise NotImplementedError(
                 f"loss {cfg.loss_fn_name!r} / task {cfg.task!r}: only the "

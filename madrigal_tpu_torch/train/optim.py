@@ -3,8 +3,9 @@
 
 Five learning rates (structure / kg / perturb / fusion / decoder), each
 with a no-decay twin ('<group>_nd': biases, LayerNorm scales, the learned
-tokens, GIN eps and learned positions), as AdamW parameter groups; the
-chemCPA `drug_embeddings` table is 'frozen' and in no group. The labels
+tokens, GIN eps and learned positions), as parameter groups of AdamW,
+RAdam or LARS (`optim.optimizer`); the chemCPA `drug_embeddings` table is
+'frozen' and in no group. The labels
 are the JAX package's, read off each parameter's flax path: a torch
 parameter's path is its module path with the leaf renamed back (a Linear
 weight is a flax `kernel`, an Embedding weight an `embedding`, a norm
@@ -13,6 +14,12 @@ weight a `scale`).
 The schedule is linear warmup then cosine decay, per epoch, as a
 LambdaLR: one optimizer step is one epoch, and update k uses the
 schedule at k (the first update at 0), as optax counts.
+
+RAdam and LARS are written here, to the JAX package's arithmetic:
+`optax.radam` after `optax.add_decayed_weights(wd)` (an L2 term on the
+gradient; `torch.optim.RAdam` adds eps to sqrt(v) before the bias
+correction, optax after it, and tests its threshold with > where optax
+uses >=), and the reference's moco-v3 LARS (utils.py:628-662).
 """
 from __future__ import annotations
 
@@ -102,16 +109,112 @@ def warmup_cosine_schedule(base_lr: float, warmup_epochs: int,
     return sched
 
 
+def half_cycle_cosine_schedule(base_lr: float, warmup_epochs: int,
+                               total_epochs: int) -> Callable[[int], float]:
+    """The pretrain per-epoch adjust_learning_rate (utils.py:682-694):
+    linear 0 -> base over warmup, then base * (1 + cos(pi * t)) / 2."""
+
+    def sched(step: int) -> float:
+        if step < warmup_epochs:
+            return base_lr * step / max(warmup_epochs, 1)
+        t = (step - warmup_epochs) / max(total_epochs - warmup_epochs, 1)
+        return base_lr * 0.5 * (1.0 + math.cos(math.pi * t))
+
+    return sched
+
+
+class RAdam(torch.optim.Optimizer):
+    """optax.radam (threshold 5.0) after an L2 term `weight_decay * p` on
+    the gradient, as the JAX package chains `add_decayed_weights`:
+    m, v the moments of g + wd * p; at step t, m_hat = m / (1 - b1^t),
+    v_hat = v / (1 - b2^t), rho = rho_inf - 2 t b2^t / (1 - b2^t); the
+    update is lr * r * m_hat / (sqrt(v_hat) + eps) when rho >= 5, else
+    lr * m_hat."""
+
+    threshold = 5.0
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            wd, eps, lr = group["weight_decay"], group["eps"], group["lr"]
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad + wd * p if wd else p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = st["step"]
+                m, v = st["exp_avg"], st["exp_avg_sq"]
+                m.mul_(b1).add_(g, alpha=1.0 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                m_hat = m / (1.0 - b1 ** t)
+                b2t = b2 ** t
+                rho = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+                if rho >= self.threshold:
+                    r = math.sqrt((rho - 4.0) * (rho - 2.0) * rho_inf
+                                  / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho))
+                    v_hat = v / (1.0 - b2t)
+                    m_hat = r * m_hat / (v_hat.sqrt() + eps)
+                p.add_(m_hat, alpha=-lr)
+
+
+class LARS(torch.optim.Optimizer):
+    """LARS as the reference's moco-v3 copy (utils.py:628-662): for a
+    parameter of more than one dimension, dp = (g + wd * p) * q with the
+    trust ratio q = trust_coefficient * |p| / |g + wd * p| (1 where
+    either norm is 0); other parameters take dp = g. Heavy-ball momentum
+    mu = momentum * mu + dp, and p -= lr * mu, lr the group's rate at this
+    step."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 momentum: float = 0.9, trust_coefficient: float = 0.001):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      momentum=momentum,
+                                      trust_coefficient=trust_coefficient))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            wd, lr = group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                dp = p.grad
+                if p.ndim > 1:
+                    dp = dp + wd * p
+                    p_norm, g_norm = p.norm(), dp.norm()
+                    q = torch.where(
+                        (p_norm > 0) & (g_norm > 0),
+                        group["trust_coefficient"] * p_norm / g_norm,
+                        torch.ones_like(p_norm))
+                    dp = dp * q
+                st = self.state[p]
+                if "mu" not in st:
+                    st["mu"] = torch.zeros_like(p)
+                mu = st["mu"]
+                mu.mul_(group["momentum"]).add_(dp)
+                p.add_(mu, alpha=-lr)
+
+
 def create_optimizer(model: nn.Module, cfg: OptimizerConfig,
                      warmup_epochs: int = 0, total_epochs: int = 1,
                      frozen_encoder: bool = False):
-    """(AdamW over the labelled groups, its per-epoch LambdaLR). With
-    frozen_encoder only the decoder trains (reference --frozen,
+    """(cfg.optimizer over the labelled groups, its per-epoch LambdaLR).
+    With frozen_encoder only the decoder trains (reference --frozen,
     utils.py:329-331)."""
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r}: only adamw is ported (ROADMAP: "
-            "radam and lars optimizers)")
+    if cfg.optimizer not in ("adamw", "radam", "lars"):
+        raise NotImplementedError(f"optimizer={cfg.optimizer!r}")
     group_lrs = {"str": cfg.structure_encoder_lr, "kg": cfg.kg_encoder_lr,
                  "perturb": cfg.perturb_encoders_lr, "fusion": cfg.fusion_lr,
                  "decoder": cfg.decoder_lr}
@@ -126,8 +229,14 @@ def create_optimizer(model: nn.Module, cfg: OptimizerConfig,
             if ps:
                 groups.append({"params": ps, "lr": group_lrs[g],
                                "weight_decay": wd, "label": label})
-    opt = torch.optim.AdamW(groups, betas=(cfg.beta1, cfg.beta2),
-                            eps=cfg.eps)
+    if cfg.optimizer == "adamw":
+        opt = torch.optim.AdamW(groups, betas=(cfg.beta1, cfg.beta2),
+                                eps=cfg.eps)
+    elif cfg.optimizer == "radam":
+        opt = RAdam(groups, lr=cfg.decoder_lr, betas=(cfg.beta1, cfg.beta2),
+                    eps=cfg.eps)
+    else:
+        opt = LARS(groups, lr=cfg.decoder_lr, momentum=cfg.momentum)
     factor = (warmup_cosine_schedule(1.0, warmup_epochs, total_epochs)
               if warmup_epochs > 0 else (lambda step: 1.0))
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
