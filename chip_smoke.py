@@ -19,9 +19,13 @@ ensemble through the serving CLI on the reference scale divided by
 ENSEMBLE_SHRINK; stage-3 training, with its evaluation sweep and test
 pass, through `madrigal_tpu_torch.cli.train_ddi` on the same data
 (divided by SYNTHETIC_TRAIN_SHRINK) with the memory flags
-TRAIN_MEMORY_FLAGS; and the same at full scale on the data written in the
-reference's on-disk layout (`--data_dir`), warm-started from a stage-2
-checkpoint, with `--all_train` and the serving CLI on that layout.
+TRAIN_MEMORY_FLAGS; stage-2 contrastive pretraining of the flagship
+encoder through `madrigal_tpu_torch.cli.pretrain` at full scale, and with
+its final-embeddings evaluation at the reference scale divided by
+FINAL_EMBEDS_SHRINK; and stage 3 at full scale on the data written in
+the reference's on-disk layout (`--data_dir`), warm-started from that
+stage-2 run's checkpoint, with `--all_train` and the serving CLI on that
+layout.
 
 Phases, in order; any failure ends the script with a non-zero exit:
 
@@ -46,7 +50,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
      outcomes against a numpy float32 form of the JAX package's compiled
      formula, exactly, and against the float64 offline path within
      2.5e-7, and a tie case against the numpy stable formula, exactly
-     (these references run on the host beside phases 7-9, and the
+     (these references run on the host beside phases 7-12, and the
      ranks line follows theirs);
   7. predict_ensemble: the serving CLI with two checkpoints at the
      reference scale / ENSEMBLE_SHRINK (counts set to 0 before, read
@@ -60,28 +64,43 @@ Phases, in order; any failure ends the script with a non-zero exit:
      masks, under AdamW (with the Evaluator's val metrics after them),
      RAdam and LARS, and the card's HGT gradients through K2 against
      those through the plain `index_add_` backward (`--no_src_mxu`);
-  9. training: the training CLI at the flagship configuration on the
+  9. pretrain_small: PRETRAIN_SMALL_STEPS stage-2 steps at narrow widths
+     (dropout 0) on a small dataset, on the card against the CPU from the
+     same weights and host draws, on the device-table path under AdamW
+     and LARS and the host-collate path under AdamW, and the card's HGT
+     gradients through K2 against the plain backward's;
+ 10. training: the training CLI at the flagship configuration on the
      reference scale / SYNTHETIC_TRAIN_SHRINK for 3 epochs with one
      evaluation sweep and the test pass, with every kernel's launch count
      set to 0 just before it and read just after;
- 10. data_dir: the reference-scale dataset written in the reference
+ 11. pretrain: the stage-2 CLI at the flagship encoder's widths on the
+     reference scale (seed 0) for PRETRAIN_STEPS steps of batch
+     PRETRAIN_BATCH with a checkpoint every PRETRAIN_SAVE_EVERY (counts
+     set to 0 before, read after; K2 at this run's shapes, launches a
+     step; each step's seconds, the peak device memory), its checkpoints
+     checked;
+ 12. pretrain_final_embeds: the stage-2 CLI with --host_collate and
+     --final_embeds_eval at the reference scale / FINAL_EMBEDS_SHRINK
+     for FINAL_EMBEDS_STEPS steps (counts set to 0 before, read after);
+ 13. data_dir: the reference-scale dataset written in the reference
      layout by the port's exporter (val/test tables of the 80/10/10
-     split beside the train table), a stage-2 checkpoint of a random
-     flagship encoder (seed 2), and the training CLI on that directory
-     (`--data_dir --checkpoint --use_pretrained_adaptor`, RAdam) for 2
-     epochs, one sweep and the test pass (counts set to 0 before, read
-     after): the data it loaded against the dataset written (every array
-     but the molecules, exactly), the native featurizer's molecules
-     against the built-in one's, the model the trainer received against
-     the checkpoint and the fresh init, exactly; then the serving CLI
-     with `--data_dir` on the trained model, its triples against the
+     split beside the train table), and the training CLI on that
+     directory warm-started from phase 11's `cl_last` (`--data_dir
+     --checkpoint --use_pretrained_adaptor`, RAdam) for 2 epochs, one
+     sweep and the test pass (counts set to 0 before, read after): the
+     data it loaded against the dataset written (every array but the
+     molecules, exactly), the native featurizer's molecules against the
+     built-in one's, the model the trainer received against the
+     stage-2 checkpoint and the fresh init, exactly; then the serving
+     CLI with `--data_dir` on the trained model, its triples against the
      exported embeddings;
- 11. all_train: the training CLI with `--all_train` on reference-format
+ 14. all_train: the training CLI with `--all_train` on reference-format
      data at the reference scale / ALL_TRAIN_SHRINK for one epoch (counts
      set to 0 before, read after).
 
 Standard output: one JSON line per phase, a line of each phase's wall
-seconds, the `{"kernels": [...]}` line,
+seconds (with the stage-2 phases' sum and `main` against STAGE2_BUDGET_S
+and MAIN_BUDGET_S), the `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
 writes only under `build/` in the checkout and imports no JAX.
 
@@ -97,6 +116,11 @@ out-of-memory error. It prints no ok line.
 runs phases 1-3 only (device, build with nvcc's -Xptxas -v report, and
 the kernel checks and timings) and prints their lines, with no
 `{"kernels": [...]}` line and no ok line: the quick loop for kernel work.
+
+    python3 chip_smoke.py --pretrain
+
+builds K2 and runs phases 9, 11 and 12 only: the quick loop for stage-2
+work. It prints no ok line.
 """
 from __future__ import annotations
 
@@ -118,6 +142,7 @@ import madrigal_tpu_torch
 from madrigal_tpu_torch import config as C
 from madrigal_tpu_torch.cli import common as cli_common
 from madrigal_tpu_torch.cli import predict as cli_predict
+from madrigal_tpu_torch.cli import pretrain as cli_pretrain
 from madrigal_tpu_torch.cli import train_ddi as cli_train_ddi
 from madrigal_tpu_torch.cli.common import reference_scale_kwargs
 from madrigal_tpu_torch.data import datasets, native_featurizer
@@ -136,13 +161,19 @@ from madrigal_tpu_torch.eval import ranks as R
 from madrigal_tpu_torch.eval.evaluate import Evaluator
 from madrigal_tpu_torch.models.encoder import build_model, init_weights
 from madrigal_tpu_torch.ops import _build, bilinear, segment_sorted
-from madrigal_tpu_torch.train import finetune
+from madrigal_tpu_torch.train import checkpoint as ckpt_lib
+from madrigal_tpu_torch.train import finetune, pretrain_cl
 from madrigal_tpu_torch.train.checkpoint import (
     CL_TRANSFER_DROP_TOP,
     load_checkpoint,
+    load_train_state,
     save_checkpoint,
 )
 from madrigal_tpu_torch.train.finetune import FinetuneTrainer
+from madrigal_tpu_torch.train.pretrain_cl import (
+    CLPretrainer,
+    build_simclr_model,
+)
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -185,6 +216,17 @@ ALL_TRAIN_SHRINK, ALL_TRAIN_EPOCHS = 8, 1
 # train_small's RAdam and LARS runs: steps (RAdam at beta2 0.999 passes
 # its rectification threshold at step 6)
 OPTIM_STEPS = 7
+# stage 2 (`cli.pretrain`): the full-scale run's steps, checkpoint
+# interval and batch (the JAX package's measured stage-2 configuration,
+# docs/CLI_WALL.md), whether it recomputes the HGT's edge types in the
+# backward (no: the step fits in 80 GB without), pretrain_small's steps,
+# and the --final_embeds_eval run's scale divisor and steps
+PRETRAIN_STEPS, PRETRAIN_SAVE_EVERY, PRETRAIN_BATCH = 12, 5, 768
+PRETRAIN_HGT_REMAT = False
+PRETRAIN_SMALL_STEPS = 6
+FINAL_EMBEDS_SHRINK, FINAL_EMBEDS_STEPS = 8, 2
+# the wall-time budget: the stage-2 phases together, and main
+STAGE2_BUDGET_S, MAIN_BUDGET_S = 60.0, 290.0
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -492,9 +534,10 @@ def phase_k2_kernels():
               for e_real, e_pad, n in ((900, 1000, 37), (4000, 4096, 1001))
               for dt in (f32, bf16, f16)]
     # every edge type the runs at the reference scale / 8 (--synthetic_scale
-    # training, --all_train) reduce, at the shape those runs give it
-    for shrink in sorted({SYNTHETIC_TRAIN_SHRINK, ALL_TRAIN_SHRINK}
-                         - {TRAIN_SHRINK}):
+    # training, --all_train, stage 2's --final_embeds_eval run) reduce, at
+    # the shape those runs give it
+    for shrink in sorted({SYNTHETIC_TRAIN_SHRINK, ALL_TRAIN_SHRINK,
+                          FINAL_EMBEDS_SHRINK} - {TRAIN_SHRINK}):
         for et, shape in k2_shapes(shrink).items():
             checks.append({"edge_type": "__".join(et), "shrink": shrink,
                            **k2_check(*shape, f32, seed=7)})
@@ -1159,6 +1202,237 @@ def phase_training():
     return counts
 
 
+# ------------------------------------------------------------- stage 2
+def pretrain_small_config(optimizer: str) -> C.PretrainConfig:
+    """pretrain_small's stage-2 configuration: narrow_config's encoder
+    (dropout 0), batch 16 of the small dataset's drugs. AdamW trains the
+    raw-encoder-output views (the full run's); LARS, with a rate high and
+    a warmup short enough that its trust-scaled updates are not zero,
+    trains through the fusion transformer."""
+    enc = narrow_config(NUM_LABELS).model.encoder
+    kw = (dict(pretrain_lr=0.5, warmup_epochs=1, raw_encoder_output=False)
+          if optimizer == "lars" else
+          dict(pretrain_lr=1e-3, warmup_epochs=2, raw_encoder_output=True))
+    return C.PretrainConfig(
+        encoder=enc, pretrain_mode="str_center_uni",
+        pretrain_unbalanced=True, pretrain_batch_size=16,
+        pretrain_num_epochs=50, pretrain_optimizer=optimizer, seed=0, **kw)
+
+
+def phase_pretrain_small():
+    """Stage-2 steps on a small dataset, dropout 0, on the card against the
+    CPU from the same weights (seed 1) and the same host draws: the
+    device-table path under AdamW and under LARS, and the host-collate
+    path under AdamW, PRETRAIN_SMALL_STEPS steps each (every loss within
+    1e-4 relative, as train_small). The card takes step 1 alone and the
+    rest through train_steps (the pinned, side-stream prefetch); the CPU
+    takes every step alone. And the card's step-1 HGT gradients through
+    K2 against those through the plain backward (within 1e-4 of each
+    tensor's largest)."""
+    ds = make_dataset(seed=3)
+    schema = kg_schema(ds.kg_node_feats, ds.kg_edge_indices)
+    runs = {f"{dev}_{name}": (dev, table, opt, True)
+            for name, table, opt in (("adamw", True, "adamw"),
+                                     ("lars", True, "lars"),
+                                     ("adamw_host", False, "adamw"))
+            for dev in ("cpu", "cuda")}
+    runs["cuda_plain_bwd"] = ("cuda", True, "adamw", False)
+    losses, grads, launches, seconds = {}, {}, {}, {}
+    for name, (dev, table, opt, src_sort) in runs.items():
+        t0 = time.perf_counter()
+        cfg = pretrain_small_config(opt)
+        model = init_weights(build_simclr_model(cfg, *schema),
+                             torch.Generator().manual_seed(1))
+        coll = DDICollator(ds, split="train", seed=0, device=dev,
+                           kg_src_sort=src_sort)
+        trainer = CLPretrainer(cfg, coll, coll.kg_batch(), model.to(dev),
+                               device_table=table)
+        reset_launches()
+        losses[name] = [trainer.train_step()]
+        grads[name] = {k: p.grad.detach().cpu()
+                       for k, p in trainer.model.named_parameters()
+                       if "kg_encoder" in k}
+        if name != "cuda_plain_bwd":
+            rest = PRETRAIN_SMALL_STEPS - 1
+            losses[name] += (trainer.train_steps(rest) if dev == "cuda"
+                             else [trainer.train_step() for _ in range(rest)])
+        launches[name] = read_launches()
+        seconds[name] = time.perf_counter() - t0
+    enc = pretrain_small_config("adamw").encoder
+    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
+                                    enc.hgt.num_layers)
+    want = {n: (0 if n.startswith("cpu") or n == "cuda_plain_bwd" else
+                PRETRAIN_SMALL_STEPS * per_step) for n in runs}
+    require({n: c["sorted_segment_sum"] for n, c in launches.items()} == want
+            and all(c["bilinear_scores"] == 0 for c in launches.values()),
+            f"pretrain_small: launches {launches}, expected K2 {want}")
+    loss_err = {}
+    for name in ("adamw", "lars", "adamw_host"):
+        cpu, card = losses[f"cpu_{name}"], losses[f"cuda_{name}"]
+        rel = [abs(g - c) / abs(c) for c, g in zip(cpu, card)]
+        require(len(card) == PRETRAIN_SMALL_STEPS and np.isfinite(card).all()
+                and max(rel) <= 1e-4,
+                f"pretrain_small ({name}): losses on the card {card} "
+                f"against {cpu} on the CPU")
+        loss_err[name] = max(rel)
+    grad_err = 0.0
+    for k, g in grads["cuda_adamw"].items():
+        ref = grads["cuda_plain_bwd"][k]
+        err = (g - ref).abs().max().item()
+        require(err <= 1e-4 * ref.abs().max().item(),
+                f"pretrain_small: HGT gradient {k} through K2 differs from "
+                f"the plain backward by {err}")
+        grad_err = max(grad_err, err / max(ref.abs().max().item(), 1e-30))
+    emit({"phase": "pretrain_small", "drugs": ds.num_drugs,
+          "steps": PRETRAIN_SMALL_STEPS,
+          "widths": {"feature_dim": enc.feature_dim,
+                     "hgt": enc.hgt.hidden_dim},
+          "losses": losses, "max_rel_loss_err_vs_cpu": loss_err,
+          "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
+          "launches": launches, "run_s": seconds})
+
+
+def pretrain_argv(save_dir: Path, steps: int, shrink: int = TRAIN_SHRINK,
+                  extra=()) -> list:
+    """The stage-2 CLI at the flagship encoder (float32; the JAX
+    package's bf16 compute types are not ported) with the JAX package's
+    stage-2 settings (scripts/cli_wall_bench.py FLAGSHIP_SETS_CL: fusion
+    chunk 512 and remat, the HGT remat as PRETRAIN_HGT_REMAT;
+    str_center_uni, unbalanced, raw encoder output, batch
+    PRETRAIN_BATCH) on the reference scale divided by `shrink`, seed 0:
+    the data the `data_dir` phase writes."""
+    enc = flagship_config(NUM_LABELS).model.encoder
+    enc = dataclasses.replace(
+        enc, fusion_batch_chunk=512,
+        transformer=dataclasses.replace(enc.transformer, remat=True),
+        hgt=dataclasses.replace(enc.hgt,
+                                remat_edge_types=PRETRAIN_HGT_REMAT))
+    return [a if a == "--set" else "encoder." + a
+            for a in config_overrides(enc)] + [
+        "--platform", "cuda", "--synthetic_scale",
+        "--synthetic_scale_shrink", str(shrink),
+        "--pretrain_mode", "str_center_uni", "--pretrain_unbalanced",
+        "--raw_encoder_output", "--batch_size", str(PRETRAIN_BATCH),
+        "--num_steps", str(steps), "--seed", "0",
+        "--save_dir", str(save_dir), *extra]
+
+
+def run_pretrain(argv, shrink: int, path: str):
+    """The stage-2 CLI with the launch counts set to 0 just before it and
+    read just after, each step timed to the end of its work on the card;
+    K2 held to the launches a step needs and to the shapes
+    phase_k2_kernels checked. Returns (the CLI's result, counts, step
+    seconds, CLI seconds, peak device GB, checkpoint save seconds)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        rec.wrap(cli_common, "make_reference_scale_dataset", keep=True)
+        rec.wrap(pretrain_cl.CLPretrainer, "_run_step", sync=True)
+        rec.wrap(ckpt_lib, "save_checkpoint")
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        res = cli_pretrain.main(argv)
+        t_cli = time.perf_counter() - t0
+        counts = read_launches()  # counts end here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ds = rec.results["make_reference_scale_dataset"][0]
+    check_k2_shapes(ds.kg_edge_indices, shrink, path)
+    steps = len(res["losses"])
+    per_step = k2_launches_per_step(
+        list(ds.kg_edge_indices),
+        flagship_config(NUM_LABELS).model.encoder.hgt.num_layers)
+    require(counts == {"bilinear_scores": 0,
+                       "sorted_segment_sum": per_step * steps},
+            f"{path}: launches {counts}, expected {per_step} of K2 a step")
+    require(all(np.isfinite(res["losses"])),
+            f"{path}: losses {res['losses']}")
+    return (res, counts, rec.seconds["_run_step"], t_cli, peak,
+            rec.seconds["save_checkpoint"])
+
+
+def phase_pretrain():
+    """Stage 2 at full scale: the CLI for PRETRAIN_STEPS steps with a
+    checkpoint every PRETRAIN_SAVE_EVERY; the checkpoints' names, steps
+    and contents. Returns (counts, the cl_last path); the data_dir phase
+    warm-starts from it."""
+    save_dir = WORK / "pretrain"
+    if save_dir.exists():
+        shutil.rmtree(save_dir)
+    res, counts, step_s, t_cli, peak, save_s = run_pretrain(
+        pretrain_argv(save_dir, PRETRAIN_STEPS, extra=(
+            "--save_checkpoints", str(PRETRAIN_SAVE_EVERY))),
+        TRAIN_SHRINK, "pretrain")
+    boundaries = list(range(PRETRAIN_SAVE_EVERY, PRETRAIN_STEPS,
+                            PRETRAIN_SAVE_EVERY))
+    require([Path(p).name for p in res["checkpoints"]]
+            == [f"cl_checkpoint_{b}" for b in boundaries]
+            and len(res["losses"]) == PRETRAIN_STEPS,
+            f"pretrain: checkpoints {res['checkpoints']}, "
+            f"{len(res['losses'])} steps")
+    sd, cfg = load_checkpoint(res["checkpoint"])
+    epoch, opt_state, extra = load_train_state(res["checkpoint"])
+    require(isinstance(cfg, C.PretrainConfig)
+            and cfg.pretrain_batch_size == PRETRAIN_BATCH
+            and extra["steps"] == PRETRAIN_STEPS and opt_state
+            and all(torch.isfinite(v).all() for v in sd.values())
+            and any(k.startswith("predictor_1.") for k in sd),
+            "pretrain: cl_last does not hold the trained run")
+    emit({"phase": "pretrain", "drugs": NUM_DRUGS,
+          "batch": PRETRAIN_BATCH, "steps": PRETRAIN_STEPS,
+          "hgt_remat": PRETRAIN_HGT_REMAT, "launches": counts,
+          "k2_launches_per_step": counts["sorted_segment_sum"]
+          // PRETRAIN_STEPS,
+          "losses": res["losses"], "first_step_s": step_s[0],
+          "steady_step_s": float(np.median(step_s[1:])), "step_s": step_s,
+          "segment_s": res["segment_seconds"],
+          "segment_steps": res["segment_steps"],
+          "checkpoint_save_s": save_s, "data_build_s": res["data_seconds"],
+          "cli_s": t_cli, "peak_device_mem_gb": peak})
+    return counts, res["checkpoint"]
+
+
+def phase_pretrain_final_embeds():
+    """Stage 2 at the reference scale / FINAL_EMBEDS_SHRINK with
+    --host_collate and --final_embeds_eval for FINAL_EMBEDS_STEPS steps:
+    the table written equals the one returned, the embeddings are finite,
+    and one pair's alignment recomputed from the saved files equals the
+    table's."""
+    from madrigal_tpu_torch.eval.cl_metrics import alignment_loss
+
+    save_dir = WORK / "pretrain_final"
+    if save_dir.exists():
+        shutil.rmtree(save_dir)
+    res, counts, step_s, t_cli, peak, _ = run_pretrain(
+        pretrain_argv(save_dir, FINAL_EMBEDS_STEPS,
+                      shrink=FINAL_EMBEDS_SHRINK,
+                      extra=("--host_collate", "--final_embeds_eval")),
+        FINAL_EMBEDS_SHRINK, "pretrain_final_embeds")
+    table = res["final_embeds"]
+    with open(save_dir / "final_embeds_metrics.json") as f:
+        written = json.load(f)
+    require(written == table and "train 0 v 1" in table,
+            f"final embeds: table {sorted(table)}")
+    files = {p.name: np.load(p) for p in
+             (save_dir / "final_embeds").glob("*.npz")}
+    require(all(np.isfinite(f["embeds"]).all() for f in files.values()),
+            "final embeds: not finite")
+    a, b = files["train_embeds_0.npz"], files["train_embeds_1.npz"]
+    _, ia, ib = np.intersect1d(a["drugs"], b["drugs"], return_indices=True)
+    align = alignment_loss(a["embeds"][ia], b["embeds"][ib])
+    require(align == table["train 0 v 1"]["alignment"],
+            f"final embeds: alignment {align} against "
+            f"{table['train 0 v 1']['alignment']}")
+    emit({"phase": "pretrain_final_embeds", "shrink": FINAL_EMBEDS_SHRINK,
+          "steps": FINAL_EMBEDS_STEPS, "launches": counts,
+          "losses": res["losses"], "step_s": step_s,
+          "modality_pairs": len(table), "embedding_files": len(files),
+          "final_embeds_s": res["final_embeds_seconds"],
+          "data_build_s": res["data_seconds"], "cli_s": t_cli,
+          "peak_device_mem_gb": peak})
+    shutil.rmtree(save_dir)
+    return counts
+
+
 # ------------------------------------------------- reference-format data
 class Recorder:
     """Wraps functions of a module for one run: keeps each call's seconds
@@ -1167,12 +1441,17 @@ class Recorder:
     def __init__(self):
         self.seconds, self.results, self._undo = {}, {}, []
 
-    def wrap(self, owner, name: str, keep: bool = False):
+    def wrap(self, owner, name: str, keep: bool = False,
+             sync: bool = False):
+        """`sync`: each call's seconds end when the card has finished its
+        work."""
         orig = getattr(owner, name)
 
         def wrapped(*args, **kwargs):
             t0 = time.perf_counter()
             out = orig(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
             self.seconds.setdefault(name, []).append(
                 time.perf_counter() - t0)
             if keep:
@@ -1237,29 +1516,12 @@ def check_loaded(got, want) -> None:
             "the loaded train table differs from the one written")
 
 
-def stage2_checkpoint(cfg, ds, path: str) -> dict:
-    """A stage-2 checkpoint of a random flagship encoder (seed 2) under
-    `base_encoder.`, with the modules the warm start drops and random
-    BatchNorm statistics (which it must not take), and a projection head
-    the finetune model lacks. Returns its entries."""
-    enc = random_model(cfg, ds, seed=2).encoder
-    g = torch.Generator().manual_seed(2)
-    sd = {}
-    for k, v in enc.state_dict().items():
-        if k.endswith(("running_mean", "running_var")):
-            v = torch.rand(v.shape, generator=g) + 0.5
-        sd["base_encoder." + k] = v
-    sd["predictor.dense_0.weight"] = torch.randn(D, D, generator=g)
-    save_checkpoint(path, sd, C.PretrainConfig(), epoch=0)
-    return sd
-
-
 def check_warm_start(start: dict, cfg, ds, stage2: dict) -> dict:
-    """The model as the trainer received it against the checkpoint (the
-    encoder parameters it keeps, the uni projector too under
-    --use_pretrained_adaptor) and against the run's own fresh init (the
-    dropped modules, the decoder and every BatchNorm statistic), exactly.
-    Returns the counts of each."""
+    """The model as the trainer received it against the stage-2
+    checkpoint (the encoder parameters it keeps, the uni projector too
+    under --use_pretrained_adaptor) and against the run's own fresh init
+    (the dropped modules, the decoder and every BatchNorm statistic, which
+    stage 2 trained away from it), exactly. Returns the counts of each."""
     fresh = init_weights(build_model(
         finetune.training_model_config(cfg),
         *kg_schema(ds.kg_node_feats, ds.kg_edge_indices), device="cpu"),
@@ -1292,10 +1554,11 @@ def data_dir_argv(root: Path, save_dir: Path, epochs: int,
         "--save_dir", str(save_dir), *extra]
 
 
-def phase_data_dir() -> dict:
+def phase_data_dir(stage2_path: str) -> dict:
     """Reference-format data at full scale: the reference-scale dataset
     written in the reference layout by the port's exporter, then the
-    training CLI on it (--data_dir) warm-started from a stage-2 checkpoint
+    training CLI on it (--data_dir) warm-started from the stage-2
+    checkpoint the `pretrain` phase wrote on the same data
     (--checkpoint, --use_pretrained_adaptor) with DATA_DIR_OPTIMIZER for
     DATA_DIR_EPOCHS epochs, one evaluation sweep and the test pass (K2's
     counts set to 0 just before, read just after); the data it loaded
@@ -1316,7 +1579,7 @@ def phase_data_dir() -> dict:
     t_export = time.perf_counter() - t0
     tx_bytes = (root / "views_features_new" / "tx" / "tx.csv").stat().st_size
     cfg = flagship_config(NUM_LABELS)
-    stage2 = stage2_checkpoint(cfg, ds, str(work / "stage2.pt"))
+    stage2 = load_checkpoint(stage2_path)[0]
 
     starts = []
     orig_init = finetune.FinetuneTrainer.__init__
@@ -1327,7 +1590,7 @@ def phase_data_dir() -> dict:
         orig_init(self, cfg_, batch, kg, model)
 
     argv = data_dir_argv(root, save_dir, DATA_DIR_EPOCHS, (
-        "--checkpoint", str(work / "stage2.pt"), "--use_pretrained_adaptor",
+        "--checkpoint", stage2_path, "--use_pretrained_adaptor",
         "--evaluate_interval", "1", "--test"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1554,9 +1817,23 @@ def main(argv) -> int:
         phase_train_memory()
         print(gpu_line(), flush=True)
         return 0
+    if argv == ["--pretrain"]:
+        wall = {}
+        for name, fn in (("build", lambda: _build.build(["segment_sum"])),
+                         ("pretrain_small", phase_pretrain_small),
+                         ("pretrain", phase_pretrain),
+                         ("pretrain_final_embeds",
+                          phase_pretrain_final_embeds)):
+            t0 = time.perf_counter()
+            fn()
+            wall[name] = time.perf_counter() - t0
+        emit({"phase": "wall", "seconds": wall})
+        shutil.rmtree(WORK, ignore_errors=True)
+        print(gpu_line(), flush=True)
+        return 0
     if argv not in ([], ["--kernels"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "--kernels or --train_memory")
+                 "--kernels, --pretrain or --train_memory")
 
     wall = {}
 
@@ -1583,15 +1860,27 @@ def main(argv) -> int:
     paths["predict_ensemble"] = run("predict_ensemble",
                                     phase_predict_ensemble)
     run("train_small", phase_train_small)
+    run("pretrain_small", phase_pretrain_small)
     paths["training"] = run("training", phase_training)
+    paths["pretrain"], stage2 = run("pretrain", phase_pretrain)
+    paths["pretrain_final_embeds"] = run("pretrain_final_embeds",
+                                         phase_pretrain_final_embeds)
     # collected before the phases that write and parse the large csv
     # files, which would otherwise share the host's cores with them
     run("ranks_references", finish_ranks)
-    paths["data_dir"], paths["predict_data_dir"] = run("data_dir",
-                                                       phase_data_dir)
+    # stage 3 warm-started from the card's own stage-2 checkpoint
+    paths["data_dir"], paths["predict_data_dir"] = run(
+        "data_dir", phase_data_dir, stage2)
+    shutil.rmtree(WORK / "pretrain")
     paths["all_train"] = run("all_train", phase_all_train)
-    emit({"phase": "wall", "seconds": wall,
-          "main_s": time.perf_counter() - t_start})
+    main_s = time.perf_counter() - t_start
+    stage2_s = sum(wall[p] for p in ("pretrain_small", "pretrain",
+                                     "pretrain_final_embeds"))
+    emit({"phase": "wall", "seconds": wall, "main_s": main_s,
+          "budget": {"stage2_s": stage2_s, "stage2_limit_s": STAGE2_BUDGET_S,
+                     "stage2_met": stage2_s <= STAGE2_BUDGET_S,
+                     "main_limit_s": MAIN_BUDGET_S,
+                     "main_met": main_s <= MAIN_BUDGET_S}})
 
     def entry(name, source, replaces, checks, shape_keys):
         timed = [r for r in checks if "ms" in r]
@@ -1610,7 +1899,8 @@ def main(argv) -> int:
     # K1: timed last at the all-pairs bench shape, bf16 in and out, and
     # launched on the serving, rank and ensemble paths; K2: timed last at
     # the full-scale training run's largest edge type, at the shape that
-    # run gives it, and launched on the training paths. `launches` sums the paths,
+    # run gives it, and launched on the training and stage-2 paths.
+    # `launches` sums the paths,
     # each counted from 0 just before it and read just after
     emit({"kernels": [
         entry("bilinear_scores", "madrigal_tpu_torch/csrc/bilinear.cu",

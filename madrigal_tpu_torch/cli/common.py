@@ -5,7 +5,8 @@ flags, device setup and data loading.
 TPU layout flag `--kg_chunk` still parses and selects the plain KG
 layout. In training, `--no_src_mxu` drops the source-sorted KG layout, so
 the HGT's source-gather backward is the plain `index_add_` instead of
-kernel K2; serving runs no backward and never builds that layout.
+kernel K2 (stage 2 and stage 3 train on that layout by default); serving
+runs no backward and never builds it.
 `--from_yaml` and `--set` override a training config (`apply_overrides`;
 the YAML loader needs pyyaml, `--set` nothing); serving takes its config
 from the checkpoint. `--data_dir` reads a reference-format data directory
@@ -120,13 +121,16 @@ def reference_scale_dataset(args: argparse.Namespace) -> SyntheticDataset:
         seed=args.seed, **reference_scale_kwargs(args.synthetic_scale_shrink))
 
 
-def load_data(args: argparse.Namespace, device: torch.device
+def load_data(args: argparse.Namespace, device: torch.device,
+              kg_src_sort: bool = False
               ) -> Tuple[SyntheticDataset, DDICollator]:
-    """The serving dataset and its collator: --synthetic_scale, the small
+    """The dataset and its collator: --synthetic_scale, the small
     synthetic dataset, or --data_dir's reference-format data (the loader's
-    defaults: TWOSIDES, split_by_triplets, train). The KG batch has the plain
-    layout only: the source-sorted one serves the training backward, and
-    its host argsorts would only delay the first score."""
+    defaults: TWOSIDES, split_by_triplets, train). The KG batch has the
+    plain layout, and with `kg_src_sort` also the source-sorted one that
+    the training backward reduces with kernel K2 (stage 2 asks for it
+    unless --no_src_mxu). Serving leaves it out: it runs no backward, and
+    the layout's host argsorts would only delay the first score."""
     if args.synthetic_scale:
         ds = reference_scale_dataset(args)
     elif args.synthetic or not args.data_dir:
@@ -140,5 +144,6 @@ def load_data(args: argparse.Namespace, device: torch.device
         from ..data.datasets import load_reference_dataset
 
         ds = load_reference_dataset(args.data_dir)
-    coll = DDICollator(ds, split="train", seed=args.seed, device=device)
+    coll = DDICollator(ds, split="train", seed=args.seed, device=device,
+                       kg_src_sort=kg_src_sort)
     return ds, coll

@@ -17,7 +17,10 @@ contiguous D-wide feature blocks of the JAX layout), learned tokens, and
 the decoder's unsymmetrized `weight` [L, D, D]. LayerNorm eps is 1e-5 in
 both packages. A JAX `FinetuneTrainer`'s `params` and `batch_stats` load
 into the port's `MadrigalMultilabel` the same way, for eval or train
-mode (`models/norm.py` keeps each BatchNorm's train-mode rule).
+mode (`models/norm.py` keeps each BatchNorm's train-mode rule), and a JAX
+stage-2 `CLPretrainer`'s into the port's `SimCLRModel` (`base_encoder.*`,
+`predictor.*` or `predictor_1.*` / `predictor_2.*`; the last BatchNorm of
+a predictor has statistics and no scale or bias, on both sides).
 """
 from __future__ import annotations
 
@@ -94,9 +97,10 @@ def stage2_checkpoint_from_flax(variables: Mapping, path: str, cfg,
     package's SimCLR model as numpy (the encoder under `base_encoder`),
     and `cfg` the run's config as the port's dataclass. Every module is
     kept: `base_encoder` with the fusion modules and the uni projector
-    that the warm start may drop, and the projection heads. Until stage 2
-    is ported this is how a JAX stage-2 run reaches the card; in a
-    process that has the JAX package:
+    that the warm start may drop, and the projection heads. The port's
+    own stage-2 CLI (`cli.pretrain`) writes such a checkpoint itself; a
+    JAX stage-2 run reaches the card this way, in a process that has the
+    JAX package:
 
         tree, meta = madrigal_tpu.train.checkpoint.load_checkpoint(run)
         cfg = config.from_dict(getattr(config, meta["config_class"]),

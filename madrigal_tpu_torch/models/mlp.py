@@ -3,6 +3,7 @@
   * `MLPEncoder` -- reference MLPEncoder / MLPAdaptor (models.py:121-180).
   * `ChemCPAMLP` -- chemCPA MLP (chemCPA/model.py:161-231), including the
     "half-ReLU" last-layer quirk.
+  * `SimCLRPredictor` -- the stage-2 projection head (simclr.py:46-62).
 
 Submodule names follow the flax modules (`dense_0`, `norm_0`, `bn_0`) so
 that `interop/from_flax.py` maps parameters by path. Their BatchNorms
@@ -111,4 +112,35 @@ class ChemCPAMLP(nn.Module):
         if self.last_layer_act == "ReLU":
             dim = h.shape[-1] // 2
             h = torch.cat([F.relu(h[..., :dim]), h[..., dim:]], dim=-1)
+        return h
+
+
+class SimCLRPredictor(nn.Module):
+    """`num_layers` bias-free Linears with BatchNorm + ReLU between them
+    and, with last_bn, a last BatchNorm without affine parameters."""
+
+    def __init__(self, input_dim: int, mlp_dim: int, output_dim: int,
+                 num_layers: int = 2, last_bn: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        self.last_bn = last_bn
+        dims = [input_dim] + [mlp_dim] * (num_layers - 1) + [output_dim]
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}",
+                            nn.Linear(dims[i], dims[i + 1], bias=False))
+            if i < num_layers - 1:
+                self.add_module(f"bn_{i}", MaskedBatchNorm(
+                    dims[i + 1], flax_rule=True))
+            elif last_bn:
+                self.add_module(f"bn_{i}", MaskedBatchNorm(
+                    dims[i + 1], affine=False, flax_rule=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.num_layers):
+            h = getattr(self, f"dense_{i}")(h)
+            if i < self.num_layers - 1:
+                h = F.relu(getattr(self, f"bn_{i}")(h))
+            elif self.last_bn:
+                h = getattr(self, f"bn_{i}")(h)
         return h

@@ -6,9 +6,13 @@ Format: `torch.save({"state_dict", "cfg": config.to_dict(cfg), "cfg_type",
 "epoch", "opt_state", "extra"})`; the model is rebuilt from the embedded
 config alone, as the reference does (predict.py:20-23), and a training
 run resumes from `epoch` and `opt_state` (the optimizer's and the
-schedule's state dicts). The JAX package's orbax checkpoints cannot be
-read without JAX; carry JAX weights across with `interop/from_flax.py`
-instead (`stage2_checkpoint_from_flax` for a stage-2 run).
+schedule's state dicts). A stage-2 checkpoint (`cli/pretrain.py`:
+`cl_checkpoint_{k}`, `cl_last`) is a `SimCLRModel` state_dict under a
+`PretrainConfig`, its `epoch` the checkpoint boundary and
+`extra["steps"]` the steps taken. The JAX package's orbax checkpoints
+cannot be read without JAX; carry JAX weights across with
+`interop/from_flax.py` instead (`stage2_checkpoint_from_flax` for a
+stage-2 run).
 
 The warm start (reference utils.py:246-307; the JAX CLI's `--checkpoint`,
 cli/train_ddi.py:250-265) overlays a stage-2 checkpoint's encoder

@@ -14,6 +14,8 @@ Ranks on the card equal the port's CPU ranks of the same scores exactly
 (the same stable order, the same float32 arithmetic); the sigmoid-mean
 ensemble of K1 scores is within 1e-5 of the CPU path's.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -221,3 +223,87 @@ def test_ensemble_sigmoid_scores_on_card_match_cpu(cuda):
     assert tb.bilinear_scores.launches == before + 3 * 3  # seeds x chunks
     assert got.shape == (L, n, n)
     assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_prefetcher_batches_equal_serial_ones(cuda):
+    """Pinned host memory, a side-stream copy and an event: each batch the
+    consumer reads (and computes on at once) equals the serial copy bit
+    for bit, in order."""
+    from madrigal_tpu_torch.data.collate import DDICollator
+    from madrigal_tpu_torch.data.pipeline import (
+        map_tensors,
+        prefetch_epochs,
+        to_device,
+    )
+    from madrigal_tpu_torch.data.synthetic import make_dataset
+
+    coll = DDICollator(make_dataset(num_drugs=40, seed=1), device="cpu")
+    rng = np.random.RandomState(0)
+    hosts = [(coll.drug_batch(rng.choice(40, 16, replace=False)),
+              rng.randn(512, 256).astype(np.float32),
+              {"m": rng.rand(16, 19) < 0.5}) for _ in range(6)]
+    got = []
+    for batch in prefetch_epochs(lambda s: hosts[s], 6, buffer_size=2,
+                                 device=cuda):
+        got.append((batch, float(batch[1].double().sum())))
+    for (batch, total), host in zip(got, hosts):
+        want = to_device(host, cuda)
+        assert total == float(want[1].double().sum())
+        flat_got, flat_want = [], []
+        map_tensors(flat_got.append, batch)
+        map_tensors(flat_want.append, want)
+        assert len(flat_got) == len(flat_want) > 8
+        for a, b in zip(flat_got, flat_want):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_stage2_step_on_card_matches_cpu(cuda):
+    """One stage-2 step (device-table path, dropout 0) from the same
+    weights: the loss within 1e-5 relative and every parameter within
+    1e-5 of the CPU step's; the HGT backward launches K2."""
+    from madrigal_tpu_torch import config as C
+    from madrigal_tpu_torch.data.collate import DDICollator
+    from madrigal_tpu_torch.data.kg import kg_schema
+    from madrigal_tpu_torch.data.synthetic import make_dataset
+    from madrigal_tpu_torch.models.encoder import init_weights
+    from madrigal_tpu_torch.train.pretrain_cl import (
+        CLPretrainer,
+        build_simclr_model,
+    )
+
+    ds = make_dataset(num_drugs=24, seed=3)
+    enc = C.EncoderConfig(
+        feature_dim=16, gin=C.GINConfig(hidden_dims=(16, 16),
+                                        num_mlp_layer=2),
+        hgt=C.HGTConfig(hidden_dim=64, num_layers=2, att_heads=2),
+        cv=C.MLPEncoderConfig(hidden_dims=(32, 16), dropout=0.0),
+        chemcpa=C.ChemCPAConfig(dim=16, autoencoder_width=32,
+                                autoencoder_depth=1),
+        transformer=C.FusionConfig(num_layers=1, att_heads=2, head_dim=8,
+                                   ffn_dim=32, dropout=0.0),
+        proj=C.ProjectorConfig(hidden_dims=(32, 32), dropout=0.0),
+        pos_emb_dropout=0.0)
+    cfg = C.PretrainConfig(encoder=enc, pretrain_batch_size=16,
+                           warmup_epochs=0, pretrain_lr=1e-3,
+                           raw_encoder_output=True)
+    model = init_weights(build_simclr_model(
+        cfg, *kg_schema(ds.kg_node_feats, ds.kg_edge_indices)),
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda):
+        coll = DDICollator(ds, device=dev, kg_src_sort=True)
+        tr = CLPretrainer(cfg, coll, coll.kg_batch(),
+                          copy.deepcopy(model).to(dev))
+        before = ts.sorted_segment_sum.launches
+        loss = tr.train_step()
+        runs[str(dev)] = (loss, ts.sorted_segment_sum.launches - before,
+                          {k: v.cpu() for k, v in
+                           tr.model.state_dict().items()})
+    (lc, kc, sc), (lg, kg_, sg) = runs["cpu"], runs["cuda"]
+    assert kc == 0 and kg_ > 0
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, v in sc.items():
+        np.testing.assert_allclose(sg[k].numpy(), v.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=k)

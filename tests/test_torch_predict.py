@@ -406,8 +406,12 @@ def test_entry_points_refuse_without_card(served):
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys, tempfile
+import torch
+# one thread: the tier-1 lane runs this beside its other workers, and
+# spinning intra-op threads on a full host only wait for each other
+torch.set_num_threads(1)
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml",
-          "sklearn", "madrigal_tpu")
+          "sklearn", "umap", "matplotlib", "madrigal_tpu")
 for name in banned:  # as on the card's machine: importing them fails
     sys.modules[name] = None
 import madrigal_tpu_torch
@@ -428,6 +432,25 @@ with tempfile.TemporaryDirectory() as root:
         "--set", "model.encoder.hgt.hidden_dim=64",
         "--set", "model.encoder.transformer.num_layers=1"])
     assert len(res["losses"]) == 1
+    from madrigal_tpu_torch.cli import pretrain
+    res = pretrain.main([
+        "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
+        "--num_steps", "2", "--batch_size", "8", "--save_checkpoints", "1",
+        "--final_embeds_eval", "--save_dir", root + "/cl",
+        "--set", "encoder.feature_dim=16",
+        "--set", "encoder.gin.hidden_dims=[16]",
+        "--set", "encoder.hgt.hidden_dim=8",
+        "--set", "encoder.hgt.att_heads=2",
+        "--set", "encoder.cv.hidden_dims=[16]",
+        "--set", "encoder.chemcpa.dim=16",
+        "--set", "encoder.chemcpa.autoencoder_width=16",
+        "--set", "encoder.chemcpa.autoencoder_depth=1",
+        "--set", "encoder.transformer.num_layers=1",
+        "--set", "encoder.transformer.head_dim=8",
+        "--set", "encoder.transformer.ffn_dim=16",
+        "--set", "encoder.proj.hidden_dims=[16]",
+        "--set", "moco_mlp_dim=16"])
+    assert len(res["losses"]) == 2 and res["final_embeds"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned and sys.modules[m] is not None)
 print(" ".join(sorted(m for m in sys.modules
@@ -438,8 +461,10 @@ sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 
 def test_port_imports_no_jax_pandas_or_reference_package():
     """Every module imports, and the exporter, the loader (with the native
-    featurizer) and the training CLI on --data_dir run, with JAX, pandas,
-    pyyaml, scikit-learn and the JAX package unimportable."""
+    featurizer), the training CLI on --data_dir and 2 steps of the
+    stage-2 CLI with its final-embeddings evaluation run, with JAX,
+    pandas, pyyaml, scikit-learn, umap, matplotlib and the JAX package
+    unimportable."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -450,7 +475,10 @@ def test_port_imports_no_jax_pandas_or_reference_package():
               "train.checkpoint", "ops.segment_sorted", "ops.gather",
               "eval.ranks", "eval.masks", "eval.metrics", "eval.evaluate",
               "eval.ablation", "eval.predict", "data.datasets",
-              "data.featurize", "data.native_featurizer", "data.smiles"):
+              "data.featurize", "data.native_featurizer", "data.smiles",
+              "cli.pretrain", "models.simclr", "train.pretrain_cl",
+              "train.pretrain_masks", "data.pipeline", "eval.evaluate_pt",
+              "eval.cl_metrics", "eval.geomca"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 

@@ -6,8 +6,10 @@
     flax takes the variance as E[x^2] - E[x]^2).
   * The optimizer's parameter groups equal the JAX package's labels.
   * The label-chunked triple view and the chunked decoder equal JAX's.
-  * `FinetuneTrainer`: 3 steps from the same weights (dropout 0) in a
-    one-forward mode and a three-forward mode against the JAX trainer:
+  * `FinetuneTrainer`: 3 steps from the same weights (dropout 0) against
+    the JAX trainer in each of its branches (one forward or three, the
+    third with --train_with_str_str; the directed or the whole edge list;
+    a padded mode among them):
     every step's losses (rtol 1e-4: whole-model sums in another order),
     step 1's gradients (the JAX ones read back from Adam's first moment;
     atol 1e-4 of each tensor's largest gradient, plus
@@ -20,8 +22,13 @@
     step-1 JAX gradient is rounding noise (nonzero, at most 1e-6 of the
     model's largest): Adam's 1/sqrt(v) turns that noise into an update of
     up to lr in either direction.
+  * Every other finetune mode trains a step: finite losses, under the
+    keys of its forwards.
   * The CLI trains on the CPU, and resuming after 2 epochs for 1 more
-    gives the run of 3 straight.
+    gives the run of 3 straight. With task=multiclass it trains the
+    masked BCE and scores its sweeps with the multiclass metrics, as the
+    JAX CLI does from the same weights: the same metric names, values
+    within 1e-4.
 """
 import dataclasses
 import os
@@ -67,7 +74,7 @@ LR = 3e-3
 DATA = dict(num_drugs=16, num_labels=6, num_edges=30, seed=2)
 
 
-def tiny_cfg(c, mode, label_chunk=0):
+def tiny_cfg(c, mode, label_chunk=0, train_with_str_str=False):
     """The flagship's structure at narrow widths, dropout 0; the HGT is 64
     wide, so its fused k|v table (128) takes kernel K2's backward."""
     enc = c.EncoderConfig(
@@ -88,7 +95,8 @@ def tiny_cfg(c, mode, label_chunk=0):
     return c.TrainConfig(
         model=c.ModelConfig(encoder=enc, prediction_dim=6),
         optim=c.OptimizerConfig(**lrs), finetune_mode=mode, num_epochs=3,
-        warmup_epochs=2, seed=0, label_chunk_triples=label_chunk)
+        warmup_epochs=2, seed=0, label_chunk_triples=label_chunk,
+        train_with_str_str=train_with_str_str)
 
 
 # ------------------------------------------------------------ batch norm
@@ -133,12 +141,13 @@ def data():
     return dt, bj, kj, bt, kt
 
 
-def carried_trainers(data, mode, label_chunk=0):
+def carried_trainers(data, mode, label_chunk=0, train_with_str_str=False):
     """A JAX trainer and the port's, holding the JAX trainer's initial
     weights and batch statistics."""
     dt, bj, kj, bt, kt = data
-    jt = j_ft.FinetuneTrainer(tiny_cfg(j_config, mode, label_chunk), bj, kj)
-    cfg = tiny_cfg(t_config, mode, label_chunk)
+    jt = j_ft.FinetuneTrainer(
+        tiny_cfg(j_config, mode, label_chunk, train_with_str_str), bj, kj)
+    cfg = tiny_cfg(t_config, mode, label_chunk, train_with_str_str)
     model = MadrigalMultilabel(cfg.model.encoder, 6,
                                *kg_schema(dt.kg_node_feats,
                                           dt.kg_edge_indices))
@@ -165,9 +174,21 @@ def jax_first_step_grads(jt, beta1=0.9):
     return flax_to_state_dict({"params": tree})
 
 
-@pytest.mark.parametrize("mode,label_chunk", [("full_full", 0),
-                                              ("str_random_sample", 8)])
-def test_trainer_three_steps_match_jax(data, mode, label_chunk, monkeypatch):
+# the trainer branches on the mode's forwards (one, or three with
+# --train_with_str_str) and its edge list (directed only, or both
+# directions): each combination, a padded mode among them
+THREE_STEP_MODES = [
+    pytest.param("full_full", 0, False, id="full_full-0"),
+    pytest.param("str_random_sample", 8, False, id="str_random_sample-8"),
+    pytest.param("ablation_cv_cv_padded", 0, False,
+                 id="ablation_cv_cv_padded-0"),
+    pytest.param("str_str+random_sample", 8, True,
+                 id="str_str+random_sample-8-train_with_str_str")]
+
+
+@pytest.mark.parametrize("mode,label_chunk,with_str_str", THREE_STEP_MODES)
+def test_trainer_three_steps_match_jax(data, mode, label_chunk, with_str_str,
+                                       monkeypatch):
     calls = []
 
     def counted(*args):
@@ -175,7 +196,7 @@ def test_trainer_three_steps_match_jax(data, mode, label_chunk, monkeypatch):
         return sorted_segment_sum(*args)
 
     monkeypatch.setattr(t_gather, "sorted_segment_sum", counted)
-    jt, tt = carried_trainers(data, mode, label_chunk)
+    jt, tt = carried_trainers(data, mode, label_chunk, with_str_str)
     launches = sorted_segment_sum.launches
     assert_three_steps_match_jax(jt, tt)
     assert sorted_segment_sum.launches == launches  # CPU: plain version
@@ -389,16 +410,86 @@ def test_cli_trains_and_resumes(tmp_path):
     ["--set", "model.encoder.str_encoder=gat"],
     ["--set", "model.encoder.kg_encoder=rgcn"],
     ["--set", "model.encoder.kg_encoder=han"], ["--set", "loss_fn_name=ce"],
-    ["--set", "data_source=DrugBank", "--set", "task=multiclass"],
     ["--platform", "tpu"],
     ["--all_train", "--set", "model.encoder.kg_encoder=rgcn"]])
 def test_unported_training_flags_raise(tmp_path, extra):
     """What the port does not run yet (the GAT, RGCN and HAN encoders, the
-    multiclass task, ROADMAP) raises before anything is written."""
+    cross-entropy loss, ROADMAP) raises before anything is written."""
     argv = CLI + ["--num_epochs", "3", "--save_dir", str(tmp_path)] + extra
     with pytest.raises(NotImplementedError):
         t_cli.main(argv)
     assert not os.path.exists(tmp_path / "last_model")
+
+
+@pytest.mark.parametrize("mode", [
+    m for m in t_config.FINETUNE_MODES
+    if m not in {p.values[0] for p in THREE_STEP_MODES}])
+def test_every_other_mode_trains_a_step(data, mode):
+    from madrigal_tpu_torch.models.encoder import init_weights
+
+    dt, _, _, bt, kt = data
+    cfg = tiny_cfg(t_config, mode)
+    model = init_weights(MadrigalMultilabel(
+        cfg.model.encoder, 6, *kg_schema(dt.kg_node_feats,
+                                         dt.kg_edge_indices)),
+        torch.Generator().manual_seed(0))
+    tt = t_ft.FinetuneTrainer(cfg, bt, kt, model)
+    losses = tt.train_epoch()
+    assert set(losses) == ({"X_X", "str_X", "total"}
+                           if tt.masker.uses_three_way_loss else {"total"})
+    assert all(np.isfinite(v) for v in losses.values()), losses
+
+
+def test_cli_multiclass_matches_jax(tmp_path, monkeypatch):
+    """task=multiclass (DrugBank): both CLIs from the JAX CLI's initial
+    weights for 2 epochs, sweeping the val split after the second."""
+    from madrigal_tpu.cli import train_ddi as j_cli
+    from madrigal_tpu.eval import evaluate as j_evaluate
+    from madrigal_tpu_torch.eval import evaluate as t_evaluate
+    from madrigal_tpu_torch.models import encoder as t_encoder
+
+    init, orig_init = [], j_ft.FinetuneTrainer.__init__
+
+    def capture(self, *args, **kwargs):
+        orig_init(self, *args, **kwargs)
+        # copied: the JAX step donates its state's buffers
+        init.append(jax.tree_util.tree_map(np.array, {
+            "params": self.state.params,
+            "batch_stats": self.state.batch_stats}))
+
+    monkeypatch.setattr(j_ft.FinetuneTrainer, "__init__", capture)
+    monkeypatch.setattr(t_encoder, "init_weights",
+                        lambda model, gen: load_flax_weights(model, init[0]))
+    sweeps = {"jax": [], "port": []}
+
+    def spy(pkg, real):
+        def evaluate_ft(self, *args, **kwargs):
+            key = real(self, *args, **kwargs)
+            assert self.task == "multiclass"
+            sweeps[pkg].append((key, dict(self.best_metrics)))
+            return key
+        return evaluate_ft
+
+    monkeypatch.setattr(j_evaluate.Evaluator, "evaluate_ft", spy(
+        "jax", j_evaluate.Evaluator.evaluate_ft))
+    monkeypatch.setattr(t_evaluate.Evaluator, "evaluate_ft", spy(
+        "port", t_evaluate.Evaluator.evaluate_ft))
+    argv = [a for a in CLI] + ["--set", "data_source=DrugBank",
+                               "--set", "task=multiclass",
+                               "--eval_types", "full_full,str_str",
+                               "--num_epochs", "2"]
+    argv[argv.index("--evaluate_interval") + 1] = "1"
+    j_cli.main(argv + ["--save_dir", str(tmp_path / "jax")])
+    res = t_cli.main(argv + ["--save_dir", str(tmp_path / "port")])
+    assert load_checkpoint(res["checkpoint"])[1].task == "multiclass"
+    assert len(sweeps["port"]) == len(sweeps["jax"]) == 1
+    for (kt_, mt), (kj_, mj) in zip(sweeps["port"], sweeps["jax"]):
+        assert np.isfinite(kj_) and abs(kt_ - kj_) <= 1e-4
+        assert sorted(mt) == sorted(mj)
+        for k, want in mj.items():
+            got = mt[k]
+            assert (np.isnan(got) and np.isnan(want)) or abs(
+                got - want) <= 1e-4, (k, got, want)
 
 
 def scripted_sweeps(monkeypatch, keys):
