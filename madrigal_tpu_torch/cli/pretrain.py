@@ -16,8 +16,9 @@ model, the optimizer's and the schedule's state, the boundary as its
 the steps taken, with the host draws restarted from the seed as in the
 JAX CLI (which restarts at the boundary, one step before the steps
 taken). The training backward reduces the HGT's source gather with
-kernel K2 unless `--no_src_mxu`. `--modality_ckpts` needs stage 1, which
-is not ported (ROADMAP), and raises.
+kernel K2 unless `--no_src_mxu`. `--modality_ckpts` overlays stage-1
+checkpoints (`cli.modality_pretrain`) on the encoder before the first
+step, and before `--resume`, as in the JAX CLI (`train/transfer.py`).
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch stats, optimizer state and step count)")
     p.add_argument("--modality_ckpts", type=str, nargs="*", default=[],
                    help="stage-1 checkpoints to warm-start the encoders "
-                        "from (not ported: raises)")
+                        "from")
     p.add_argument("--host_collate", action="store_true",
                    help="collate each step's minibatch on the host instead "
                         "of gathering it from the drug table collated onto "
@@ -76,10 +77,6 @@ def main(argv=None) -> dict:
     the first step), "final_embeds_seconds" (None unless
     --final_embeds_eval) and "final_embeds" (its table)}."""
     args = build_parser().parse_args(argv)
-    if args.modality_ckpts:
-        raise NotImplementedError(
-            "--modality_ckpts: stage 1 (modality pretraining) is not "
-            "ported yet (ROADMAP queue 1 item 6)")
     device = setup_platform(args)
 
     from ..data.kg import kg_schema
@@ -117,6 +114,14 @@ def main(argv=None) -> dict:
     model = build_simclr_model(
         cfg, *kg_schema(ds.kg_node_feats, ds.kg_edge_indices))
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if args.modality_ckpts:
+        from ..train.transfer import overlay_stage1_checkpoint
+
+        sd = model.base_encoder.state_dict()
+        for ck in args.modality_ckpts:
+            sd = overlay_stage1_checkpoint(sd, load_checkpoint(ck)[0])
+            logger.info(f"warm-started encoders from {ck}")
+        model.base_encoder.load_state_dict(sd, strict=True)
     start_step = 0
     if args.resume:
         model.load_state_dict(load_checkpoint(args.resume)[0], strict=True)

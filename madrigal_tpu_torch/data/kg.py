@@ -144,6 +144,28 @@ def build_kg_batch(
     )
 
 
+def remove_edges_attached_to_drugs(
+    edge_indices: Dict[EdgeType, np.ndarray],
+    drug_rows: np.ndarray,
+    num_drug_nodes: int,
+) -> Dict[EdgeType, np.ndarray]:
+    """Drop KG edges touching the given drug-node rows (leakage control for
+    eval drugs; reference: data_utils.py:279-293)."""
+    keep_mask = np.ones((num_drug_nodes,), dtype=bool)
+    keep_mask[drug_rows] = False
+    out = {}
+    for et, ei in edge_indices.items():
+        src_t, _, dst_t = et
+        ei = np.asarray(ei)
+        keep = np.ones(ei.shape[1], dtype=bool)
+        if src_t == "drug":
+            keep &= keep_mask[ei[0]]
+        if dst_t == "drug":
+            keep &= keep_mask[ei[1]]
+        out[et] = ei[:, keep]
+    return out
+
+
 def drug_row_lookup(drug_index_map: np.ndarray, num_total_drugs: int) -> np.ndarray:
     """Inverse map: global drug id -> row in the KG drug-node table, or -1
     (the drug's KG token is then zero)."""

@@ -20,7 +20,11 @@ into the port's `MadrigalMultilabel` the same way, for eval or train
 mode (`models/norm.py` keeps each BatchNorm's train-mode rule), and a JAX
 stage-2 `CLPretrainer`'s into the port's `SimCLRModel` (`base_encoder.*`,
 `predictor.*` or `predictor_1.*` / `predictor_2.*`; the last BatchNorm of
-a predictor has statistics and no scale or bias, on both sides).
+a predictor has statistics and no scale or bias, on both sides). The
+JAX stage-1 trainers' variables load into the port's stage-1 models
+(`train/modality_pretrain.py`) through the `*_state_dict` functions below,
+and a JAX stage-1 checkpoint becomes a port one with
+`stage1_checkpoint_from_flax`.
 """
 from __future__ import annotations
 
@@ -114,3 +118,58 @@ def stage2_checkpoint_from_flax(variables: Mapping, path: str, cfg,
     from ..train.checkpoint import save_checkpoint
 
     save_checkpoint(path, flax_to_state_dict(variables), cfg, epoch=epoch)
+
+
+def _stage1_state_dict(variables: Mapping, model: str, tops) -> Dict[
+        str, torch.Tensor]:
+    have = {k for coll in variables.values() for k in coll}
+    if not set(tops) <= have:
+        raise ValueError(f"not a JAX {model} variable tree: it lacks "
+                         f"{sorted(set(tops) - have)} (has {sorted(have)})")
+    return flax_to_state_dict(variables)
+
+
+def gin_property_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `GINPretrainer`'s variables ({'params', 'batch_stats'} of
+    `GINPropertyModel`: the GIN `encoder` and the task `head`) as the
+    port's GINPropertyModel state_dict."""
+    return _stage1_state_dict(variables, "GINPropertyModel",
+                              ("encoder", "head"))
+
+
+def hgt_link_pred_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `HGTLinkPredTrainer`'s variables ({'params'} of
+    `HGTLinkPredModel`: the HGT `encoder` with every node type's head, and
+    the shared `decoder`) as the port's HGTLinkPredModel state_dict."""
+    return _stage1_state_dict(variables, "HGTLinkPredModel",
+                              ("encoder", "decoder"))
+
+
+def tabular_ae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `TabularAETrainer`'s variables ({'params'} of `TabularAE`)
+    as the port's TabularAE state_dict."""
+    return _stage1_state_dict(variables, "TabularAE", ("encoder", "decoder"))
+
+
+def chemcpa_adapt_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `ChemCPAAdaptTrainer`'s variables ({'params', 'batch_stats'}
+    of `ChemCPAEncoder` after `warmup`: with the decoder and, unless
+    disable_adv, the adversaries) as the state_dict of the port's
+    `ChemCPAEncoder(cfg, adaptation=True)`."""
+    return _stage1_state_dict(variables, "ChemCPAEncoder (stage 1)",
+                              ("encoder", "decoder", "cov_embedding"))
+
+
+def stage1_checkpoint_from_flax(tree: Mapping, path: str, cfg,
+                                epoch: int = 0) -> None:
+    """Write a JAX stage-1 checkpoint (`madrigal_tpu.cli.modality_pretrain`:
+    its tree's 'params' and 'batch_stats' under `{str,kg,cv,tx}_encoder`)
+    as a port stage-1 checkpoint, which `cli.pretrain --modality_ckpts`
+    takes. `cfg` is the run's config as the port's dataclass (GINConfig,
+    HGTConfig, MLPEncoderConfig or ChemCPAConfig); load the JAX one as
+    `stage2_checkpoint_from_flax`'s docstring shows."""
+    from ..train.checkpoint import save_checkpoint
+
+    save_checkpoint(path, flax_to_state_dict(
+        {"params": tree["params"],
+         "batch_stats": tree.get("batch_stats") or {}}), cfg, epoch=epoch)

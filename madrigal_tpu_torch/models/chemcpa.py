@@ -1,17 +1,21 @@
-"""chemCPA transcriptomics encoder, predict path (port of
-`madrigal_tpu/models/chemcpa.py`; reference chemCPA/model.py:290-712).
+"""chemCPA transcriptomics encoder (port of `madrigal_tpu/models/
+chemcpa.py`; reference chemCPA/model.py:290-712).
 
 Madrigal reads `predict(..., return_latent_treated=True)`: the 128-d tx
-token per (drug, cell line). This port holds what that path runs: the
-basal encoder, the covariate embedding and, with `use_drugs`, the drug
-embeddings, their encoder and the dosers. The autoencoder's decoder and
-the adversaries serve stage-1 adaptation training and are not ported yet.
+token per (drug, cell line). Every ChemCPAEncoder holds what that path
+runs: the basal encoder, the covariate embedding and, with `use_drugs`,
+the drug embeddings, their encoder and the dosers. With `adaptation`
+(stage-1 adaptation training only, `train/modality_pretrain.py`) it also
+holds the autoencoder's `decoder` and, unless `disable_adv`, the
+adversaries. Flax creates those only when stage 1's `warmup` touches
+them, so the encoder that stages 2 and 3 build has no such entries.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ChemCPAConfig
@@ -37,7 +41,7 @@ class GeneralizedSigmoid(nn.Module):
 
 
 class ChemCPAEncoder(nn.Module):
-    def __init__(self, cfg: ChemCPAConfig):
+    def __init__(self, cfg: ChemCPAConfig, adaptation: bool = False):
         super().__init__()
         c = cfg
         self.cfg = c
@@ -60,6 +64,17 @@ class ChemCPAEncoder(nn.Module):
                 self.dosers = GeneralizedSigmoid(c.num_drugs, c.doser_type)
             elif c.doser_type is not None:
                 raise NotImplementedError(c.doser_type)
+        if adaptation:
+            self.decoder = ChemCPAMLP(
+                [c.dim] + [c.autoencoder_width] * c.autoencoder_depth
+                + [c.num_genes * 2], last_layer_act=c.decoder_activation)
+            # the adversaries (model.py:368-376, 442-451)
+            if not c.disable_adv:
+                adv = [c.dim] + [c.adversary_width] * c.adversary_depth
+                self.adversary_covariates = ChemCPAMLP(
+                    adv + [c.num_covariates])
+                if c.use_drugs:
+                    self.adversary_drugs = ChemCPAMLP(adv + [c.num_drugs])
 
     def compute_drug_embeddings(self, drugs_idx: torch.Tensor,
                                 dosages: torch.Tensor) -> torch.Tensor:
@@ -76,6 +91,9 @@ class ChemCPAEncoder(nn.Module):
             scaled = dosages
         return scaled[:, None] * self.drug_embedding_encoder(latent_drugs)
 
+    def latent_basal(self, genes: torch.Tensor) -> torch.Tensor:
+        return self.encoder(genes)
+
     def forward(self, genes: torch.Tensor, covariate_idx: torch.Tensor,
                 drugs_idx: Optional[torch.Tensor] = None,
                 dosages: Optional[torch.Tensor] = None,
@@ -87,3 +105,21 @@ class ChemCPAEncoder(nn.Module):
         if self.cfg.use_drugs:
             latent = latent + self.compute_drug_embeddings(drugs_idx, dosages)
         return latent + self.cov_embedding(covariate_idx.long())
+
+    def reconstruct(self, genes: torch.Tensor, covariate_idx: torch.Tensor,
+                    drugs_idx: Optional[torch.Tensor] = None,
+                    dosages: Optional[torch.Tensor] = None):
+        """(mean, var) of the gene reconstruction, var through softplus
+        (model.py:698-704); needs `adaptation`."""
+        recon = self.decoder(self(genes, covariate_idx, drugs_idx, dosages))
+        dim = recon.shape[-1] // 2
+        return recon[..., :dim], F.softplus(recon[..., dim:])
+
+
+def gaussian_nll_loss(mean: torch.Tensor, var: torch.Tensor,
+                      target: torch.Tensor, eps: float = 1e-6
+                      ) -> torch.Tensor:
+    """torch.nn.GaussianNLLLoss (full=False, reduction='mean') as the JAX
+    package writes it: var clamped at eps, the mean over every entry."""
+    var = var.clamp_min(eps)
+    return 0.5 * torch.mean(torch.log(var) + (target - mean) ** 2 / var)

@@ -11,6 +11,9 @@ triu(W, 1)^T per outcome (no bias).
     gathered [D, D] weight per triple, or with the label-chunked layout
     of training (`train/finetune.label_chunk_view`) one per chunk of
     `label_chunk` triples that share a label.
+  * `triples_indexed`: `triples` over row indices into one [N, D] table,
+    gathered inside recomputed chunks (stage-1 link prediction).
+  * `pairs_all_labels`: aligned (head, tail) pairs scored for every label.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.bilinear import bilinear_scores
 
@@ -90,3 +94,45 @@ class BilinearDDIScorer(nn.Module):
             out.append(torch.einsum("td,tde,te->t", z_head[s:e], w,
                                     z_tail[s:e]))
         return torch.cat(out) if out else z_head.new_zeros((0,))
+
+    # triples_indexed chunk: its [C, D] f32 gathers are 64 MB at D = 128
+    INDEXED_CHUNK = 131072
+
+    def triples_indexed(self, z_table: torch.Tensor, head_idx: torch.Tensor,
+                        tail_idx: torch.Tensor, labels: torch.Tensor,
+                        chunk: int = 0) -> torch.Tensor:
+        """`triples(z_table[head_idx], z_table[tail_idx], labels)` with the
+        rows gathered inside each chunk of `chunk` (default INDEXED_CHUNK)
+        queries: z_table [N, D], indices and labels [T] -> [T].
+
+        Stage-1 link prediction scores about 5.16M queries over 122.5k
+        nodes at the reference scale; gathering them up front would hold
+        [T, D] tensors of several GB beside the full-graph HGT's
+        activations. Each chunk runs under torch.utils.checkpoint, so only
+        its indices are kept and the backward gathers again, accumulating
+        one [N, D] gradient for the table (decoder.py:172-224 of the JAX
+        package, whose scan body is checkpointed the same way)."""
+        w_sym = self.w_sym()
+        c = chunk or self.INDEXED_CHUNK
+
+        def scores(hi, ti, lb, w):
+            if w.shape[0] == 1:
+                return torch.einsum("td,de,te->t", z_table[hi.long()], w[0],
+                                    z_table[ti.long()])
+            return torch.einsum("td,tde,te->t", z_table[hi.long()],
+                                w[lb.long()], z_table[ti.long()])
+
+        T = head_idx.shape[0]
+        if T <= c:
+            return scores(head_idx, tail_idx, labels, w_sym)
+        return torch.cat([
+            checkpoint(scores, head_idx[s:s + c], tail_idx[s:s + c],
+                       labels[s:s + c], w_sym, use_reentrant=False)
+            for s in range(0, T, c)])
+
+    def pairs_all_labels(self, z_head: torch.Tensor, z_tail: torch.Tensor
+                         ) -> torch.Tensor:
+        """Aligned (head, tail) pairs scored for every label: z_head,
+        z_tail [T, D] -> [T, L]."""
+        zw = torch.einsum("td,lde->tle", z_head, self.w_sym())
+        return torch.einsum("tle,te->tl", zw, z_tail)

@@ -432,11 +432,19 @@ with tempfile.TemporaryDirectory() as root:
         "--set", "model.encoder.hgt.hidden_dim=64",
         "--set", "model.encoder.transformer.num_layers=1"])
     assert len(res["losses"]) == 1
-    from madrigal_tpu_torch.cli import pretrain
+    from madrigal_tpu_torch.cli import modality_pretrain, pretrain
+    stage1 = [modality_pretrain.main([
+        "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
+        "--num_epochs", "2", "--feature_dim", "16", "--modality", mod,
+        "--save_dir", root + "/s1"] + extra) for mod, extra in (
+            ("kg", ["--hgt_hidden_dim", "8", "--hgt_att_heads", "2"]),
+            ("tx", ["--tx_width", "16", "--tx_depth", "1", "--enable_adv",
+                    "--eval_disentanglement"]))]
     res = pretrain.main([
         "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
         "--num_steps", "2", "--batch_size", "8", "--save_checkpoints", "1",
         "--final_embeds_eval", "--save_dir", root + "/cl",
+        "--modality_ckpts", *stage1,
         "--set", "encoder.feature_dim=16",
         "--set", "encoder.gin.hidden_dims=[16]",
         "--set", "encoder.hgt.hidden_dim=8",
@@ -461,8 +469,10 @@ sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 
 def test_port_imports_no_jax_pandas_or_reference_package():
     """Every module imports, and the exporter, the loader (with the native
-    featurizer), the training CLI on --data_dir and 2 steps of the
-    stage-2 CLI with its final-embeddings evaluation run, with JAX,
+    featurizer), the training CLI on --data_dir, the stage-1 CLI (kg, and
+    tx with its adversaries and probe) and 2 steps of the stage-2 CLI
+    warm-started from those checkpoints with its final-embeddings
+    evaluation run, with JAX,
     pandas, pyyaml, scikit-learn, umap, matplotlib and the JAX package
     unimportable."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT,
@@ -478,7 +488,8 @@ def test_port_imports_no_jax_pandas_or_reference_package():
               "data.featurize", "data.native_featurizer", "data.smiles",
               "cli.pretrain", "models.simclr", "train.pretrain_cl",
               "train.pretrain_masks", "data.pipeline", "eval.evaluate_pt",
-              "eval.cl_metrics", "eval.geomca"):
+              "eval.cl_metrics", "eval.geomca", "cli.modality_pretrain",
+              "train.modality_pretrain", "train.transfer"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 

@@ -26,7 +26,8 @@
     batches before it.
   * The CLI: `--resume` from `cl_checkpoint_k` ends where the straight run
     ends, `--final_embeds_eval` writes the JAX CLI's files,
-    `--modality_ckpts` raises, and `train_ddi --checkpoint <cl_last>`
+    `--modality_ckpts` overlays the stage-1 checkpoints exactly, and
+    `train_ddi --checkpoint <cl_last>`
     starts from the stage-2 encoder parameters.
 """
 import json
@@ -424,12 +425,58 @@ def test_cli_final_embeds_eval_writes_the_jax_files(tmp_path):
     assert emb["embeds"].shape == (len(emb["drugs"]), 16)
 
 
-def test_cli_modality_ckpts_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_pre_cli.main(CLI_ARGS + ["--num_steps", "1", "--modality_ckpts",
-                                   "stage1.pt", "--save_dir",
-                                   str(tmp_path)])
-    assert not (tmp_path / "cl_last").exists()
+def test_cli_modality_ckpts_overlays_stage1_tensors(tmp_path, monkeypatch):
+    """Before the first step, the stage-2 encoder holds every stage-1
+    tensor it declares, exactly (the other node types' link-prediction
+    heads and the chemCPA decoder are left out), and its fresh init
+    elsewhere."""
+    from madrigal_tpu_torch.cli import modality_pretrain as t_s1_cli
+    from madrigal_tpu_torch.models.encoder import init_weights
+
+    s1 = ["--platform", "cpu", "--synthetic", "--synthetic_drugs", "16",
+          "--synthetic_labels", "4", "--synthetic_edges", "16",
+          "--num_epochs", "2", "--feature_dim", "16",
+          "--save_dir", str(tmp_path / "s1")]
+    paths = [t_s1_cli.main(s1 + ["--modality", m] + extra) for m, extra in (
+        ("str", ["--gin_hidden_dims", "16", "16", "--gin_num_mlp_layer",
+                 "2"]),
+        ("kg", ["--hgt_hidden_dim", "8", "--hgt_att_heads", "2"]),
+        ("cv", ["--cv_hidden_dims", "32", "16"]),
+        ("tx", ["--tx_width", "32", "--tx_depth", "1"]))]
+    starts, orig = [], t_pcl.CLPretrainer.__init__
+
+    def snapshot(self, cfg, collator, kg, model, **kw):
+        starts.append({k: v.clone() for k, v in model.state_dict().items()})
+        orig(self, cfg, collator, kg, model, **kw)
+
+    monkeypatch.setattr(t_pcl.CLPretrainer, "__init__", snapshot)
+    res = t_pre_cli.main(CLI_ARGS + ["--num_steps", "1", "--save_dir",
+                                     str(tmp_path / "cl"), "--modality_ckpts",
+                                     *paths])
+    start = starts[0]
+    _, cfg = load_checkpoint(res["checkpoint"])
+    ds = t_syn.make_dataset(num_drugs=16, num_labels=4, num_edges=16,
+                            seed=42)
+    fresh = init_weights(t_pcl.build_simclr_model(
+        cfg, *kg_schema(ds.kg_node_feats, ds.kg_edge_indices)),
+        torch.Generator().manual_seed(42)).state_dict()
+    taken = set()
+    for path in paths:
+        sd, _ = load_checkpoint(path)
+        for k, v in sd.items():
+            name = "base_encoder." + k
+            if name in start:
+                assert torch.equal(start[name], v), name
+                taken.add(name)
+            else:
+                assert k.startswith(("kg_encoder.lin__", "tx_encoder.decoder.")
+                                    ) and "lin__drug" not in k, k
+    assert {k.split(".")[1] for k in taken} == {
+        "str_encoder", "kg_encoder", "cv_encoder", "tx_encoder"}
+    assert any(k.endswith("running_var") for k in taken)
+    for k, v in start.items():
+        if k not in taken:
+            assert torch.equal(v, fresh[k]), k
 
 
 def test_train_ddi_warm_starts_from_the_ports_cl_last(tmp_path,
