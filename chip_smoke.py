@@ -55,8 +55,35 @@ Phases, in order; any failure ends the script with a non-zero exit:
      outcomes against a numpy float32 form of the JAX package's compiled
      formula, exactly, and against the float64 offline path within
      2.5e-7, and a tie case against the numpy stable formula, exactly
-     (these references run on the host beside phases 7-14, and the
-     ranks line follows theirs);
+     (these references run on the host beside the phases after it, and
+     the ranks line follows theirs);
+  6a. alt_small: the alternative encoders (ALT_ENCODERS: gat/hgt,
+     gin/han, gin/rgcn) and gat/hgt with both compute types at bf16, at
+     narrow_config's widths on ALT_SMALL_DRUGS drugs, ALT_SMALL_STEPS
+     training steps on the card against the CPU (float32 losses within
+     1e-4 relative, bf16 within BF16_LOSS_RTOL), K2's launches and the
+     dtype of its rows (bf16 in the bf16 run);
+  6b. alt_encoders: each of ALT_ENCODERS at full width (the reference's
+     GAT, HAN and RGCN defaults with the flagship's fusion and decoder):
+     the training CLI at the reference scale / ALT_SHRINK for one epoch,
+     the serving CLI on its checkpoint exporting every score through K1,
+     ALT_HEADS_VS_CPU drugs' scores against the CPU, and the serving
+     phase's full-scale cut (128 heads x 6,843 x 960) on that phase's
+     dataset with random weights (`kg_pass`, `drug_encode`, `scoring`
+     and K1's share of it); counts set to 0 before each, read after;
+  6c. bf16_train: one full-scale stage-3 step of the flagship with both
+     compute types at bf16 and the HGT remat (peak memory, seconds, 15
+     K2 launches on bf16 rows), then K2 on that step's bf16 ppi rows
+     against its plain version, timed beside `torch.segment_reduce` and
+     the bytes bound;
+  6d. reference_ckpt: an upstream Madrigal finetune state_dict at the
+     flagship's widths (PyG 2.3 HGT, softmax_scope='global') made here
+     from seeded weights, converted by
+     `interop.from_flax.state_dict_from_reference` back to every weight
+     it came from, served at full scale through K1 and held to the CPU
+     on ALT_HEADS_VS_CPU drugs; the same encoder as a stage-2 state_dict
+     through `stage2_checkpoint_from_reference` into the stage-3 warm
+     start, exactly;
   7. predict_ensemble: the serving CLI with two checkpoints at the
      reference scale / ENSEMBLE_SHRINK (counts set to 0 before, read
      after) exporting ranks, sigmoid-mean scores, the embeddings and
@@ -122,8 +149,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
      set to 0 before, read after).
 
 Standard output: one JSON line per phase, a line of each phase's wall
-seconds (with the stage-2 phases' sum, the stage-1 phases' sum and
-`main` against STAGE2_BUDGET_S, STAGE1_BUDGET_S and MAIN_BUDGET_S), the
+seconds (with the stage-2 phases' sum, the stage-1 phases' sum, the
+sum of phases 6a-6d and `main` against STAGE2_BUDGET_S, STAGE1_BUDGET_S,
+ALT_BUDGET_S and MAIN_BUDGET_S), the
 `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
 writes only under `build/` in the checkout and imports no JAX.
@@ -150,6 +178,12 @@ builds K2 and runs phases 9, 13 (without the stage-1 warm start) and
 
 builds K2 and runs phases 10 and 12 only: the quick loop for stage-1
 work. It prints no ok line.
+
+    python3 chip_smoke.py --alt
+
+builds both kernels, the reference-scale dataset, and runs phases 6a-6d
+only: the quick loop for the alternative encoders, the bf16 modes and
+the reference's checkpoints. It prints no ok line.
 """
 from __future__ import annotations
 
@@ -198,6 +232,7 @@ from madrigal_tpu_torch.models.encoder import (
     init_weights,
 )
 from madrigal_tpu_torch.ops import _build, bilinear, segment_sorted
+from madrigal_tpu_torch.ops import gather as gather_lib
 from madrigal_tpu_torch.train import checkpoint as ckpt_lib
 from madrigal_tpu_torch.train import finetune, pretrain_cl
 from madrigal_tpu_torch.train import modality_pretrain as stage1_lib
@@ -274,9 +309,21 @@ STAGE1_KG_EPOCHS = 3
 STAGE1_SHRINK, STAGE1_EPOCHS, STAGE1_TX_BATCH = 8, 5, 4096
 LINK_HOLDOUT = 0.2
 STAGE1_SMALL_STEPS = 4
+# the alternative encoders (the reference's ablations; each a structure
+# and a KG encoder) of alt_small and alt_encoders; alt_small's drugs and
+# steps; the training and serving CLIs' scale divisor in alt_encoders; the
+# drugs whose scores are held to the CPU; alt_small's bf16 loss tolerance
+# (relative): bf16's unit roundoff, 2^-8
+ALT_ENCODERS = (("gat", "hgt"), ("gin", "han"), ("gin", "rgcn"))
+ALT_SMALL_DRUGS, ALT_SMALL_STEPS = 32, 3
+ALT_SHRINK, ALT_HEADS_VS_CPU = 8, 8
+BF16_LOSS_RTOL = 2.0 ** -8
 # the wall-time budget: the stage-2 phases together, the stage-1 phases
-# together, and main
-STAGE2_BUDGET_S, STAGE1_BUDGET_S, MAIN_BUDGET_S = 60.0, 60.0, 350.0
+# together, the four phases of the alternative encoders, the bf16 mode and
+# the reference's checkpoints together (alt_small, alt_encoders,
+# bf16_train, reference_ckpt), and main
+STAGE2_BUDGET_S, STAGE1_BUDGET_S, ALT_BUDGET_S = 60.0, 60.0, 45.0
+MAIN_BUDGET_S = 400.0
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -515,19 +562,29 @@ def k2_inputs(e_real: int, e_pad: int, n: int, dtype: torch.dtype,
 
 
 def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0):
-    """K2 against its plain version on the card, within 1e-5 of
-    max|plain| (the same f32 sums in another order; bf16 rows widen to f32
-    exactly); two launches give the same bits. With iters, also time the
-    kernel, the plain version and the one-call PyTorch yardstick."""
+    """k2_rows_check on k2_inputs' rows."""
     data, starts = k2_inputs(e_real, e_pad, n, dtype, seed)
+    row = k2_rows_check(data, starts, n, iters)
+    del data, starts
+    torch.cuda.empty_cache()
+    return row
+
+
+def k2_rows_check(data, starts, n: int, iters: int = 0) -> dict:
+    """K2 on `data` [E, W] under `starts` against its plain version, within
+    1e-5 of max|plain| (the same f32 sums in another order; bf16 rows
+    widen to f32 exactly); two launches give the same bits. With iters,
+    also time the kernel, the plain version and the one-call PyTorch
+    yardstick, beside the bytes bound."""
     got = segment_sorted.sorted_segment_sum(data, starts, n)
     again = segment_sorted.sorted_segment_sum(data, starts, n)
     ref = segment_sorted.sorted_segment_sum_plain(data, starts, n)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    row = {"E": e_pad, "E_real": e_real, "N": n, "W": K2_WIDTH,
-           "in": DTYPE_NAME[dtype], "iters": iters, "max_abs_err": err,
+    e_real = int(starts[-1])
+    row = {"E": data.shape[0], "E_real": e_real, "N": n, "W": data.shape[1],
+           "in": DTYPE_NAME[data.dtype], "iters": iters, "max_abs_err": err,
            "max_abs_plain": scale, "tol": 1e-5 * scale,
            "repeatable": bool(torch.equal(got, again))}
     require(np.isfinite(err) and err <= 1e-5 * scale and row["repeatable"],
@@ -545,9 +602,8 @@ def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0):
         row["library_ms"] = cuda_ms(
             lambda: torch.segment_reduce(data, "sum", offsets=offsets),
             iters)
-        row["bound_ms"], row["bound_by"] = k2_bound(e_real, n, K2_WIDTH,
-                                                    dtype)
-    torch.cuda.empty_cache()
+        row["bound_ms"], row["bound_by"] = k2_bound(e_real, n, data.shape[1],
+                                                    data.dtype)
     return row
 
 
@@ -720,7 +776,6 @@ def phase_serving(seed: int = 0):
         t_kg[layout] = time.perf_counter() - t0
     save_checkpoint(ckpt, random_model(flagship_config(NUM_LABELS), ds, seed),
                     flagship_config(NUM_LABELS))
-    del ds
 
     times = PhaseTimes()
     logging.getLogger("madrigal_tpu_torch").addHandler(times)
@@ -784,7 +839,7 @@ def phase_serving(seed: int = 0):
           "phase_s": phase_s, "bf16_export": bf16_export,
           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     shutil.rmtree(WORK)
-    return counts, model, z
+    return counts, model, z, ds
 
 
 def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
@@ -1196,11 +1251,11 @@ def phase_train_small():
 
 def train_argv(memory_flags, epochs: int, save_dir: Path,
                seed: int = 0, evaluate_interval: int = 0,
-               shrink: int = TRAIN_SHRINK) -> list:
-    """The training CLI's arguments at the flagship configuration on the
-    reference scale divided by `shrink`; with an evaluate_interval, also
-    the test pass."""
-    return config_overrides(flagship_config(NUM_LABELS)) + [
+               shrink: int = TRAIN_SHRINK, cfg=None) -> list:
+    """The training CLI's arguments at the flagship configuration (or
+    `cfg`) on the reference scale divided by `shrink`; with an
+    evaluate_interval, also the test pass."""
+    return config_overrides(cfg or flagship_config(NUM_LABELS)) + [
         *memory_flags, "--platform", "cuda", "--synthetic_scale",
         "--synthetic_scale_shrink", str(shrink),
         "--finetune_mode", "str_random_sample", "--label_chunk", "64",
@@ -2128,6 +2183,508 @@ def phase_all_train() -> dict:
     return counts
 
 
+# ------------------------------- alternative encoders, bf16, reference
+def alt_config(cfg: C.TrainConfig, str_enc: str, kg_enc: str,
+               bf16: bool = False) -> C.TrainConfig:
+    """`cfg` with the structure and KG encoders chosen, and with `bf16` both
+    compute types (the HGT's edge pipeline, the fusion's matmuls) at
+    bfloat16."""
+    enc = dataclasses.replace(cfg.model.encoder, str_encoder=str_enc,
+                              kg_encoder=kg_enc)
+    if bf16:
+        enc = dataclasses.replace(
+            enc, hgt=dataclasses.replace(enc.hgt, compute_dtype="bfloat16"),
+            transformer=dataclasses.replace(enc.transformer,
+                                            compute_dtype="bfloat16"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encoder=enc))
+
+
+class RowsSeen:
+    """Notes the dtype of every row table the HGT's source-gather backward
+    hands K2 (`ops/gather.sorted_segment_sum`), and keeps the rows of the
+    first launch of the given (rows, segments); the launches themselves
+    are counted by the kernel's wrapper as always."""
+
+    def __init__(self, keep: tuple = ()):
+        self.dtypes, self.kept, self.keep = [], None, keep
+
+    def __enter__(self):
+        self._orig = gather_lib.sorted_segment_sum
+
+        def seen(data, starts, n):
+            self.dtypes.append(DTYPE_NAME[data.dtype])
+            if (data.shape[0], n) == self.keep and self.kept is None:
+                self.kept = (data, starts, n)
+            return self._orig(data, starts, n)
+
+        gather_lib.sorted_segment_sum = seen
+        return self
+
+    def __exit__(self, *exc):
+        gather_lib.sorted_segment_sum = self._orig
+
+
+def phase_alt_small():
+    """Each of gat/hgt, gin/han, gin/rgcn, and gat/hgt with both compute
+    types at bf16, at narrow_config's widths (dropout 0) on
+    ALT_SMALL_DRUGS drugs: ALT_SMALL_STEPS training steps on the card
+    against the CPU from the same weights (every float32 loss within 1e-4
+    relative, as train_small; every bf16 loss within BF16_LOSS_RTOL
+    relative); K2's launches (the HGT's only), and the bf16 run's K2 rows
+    in bf16, the others' in f32."""
+    ds = make_dataset(num_drugs=ALT_SMALL_DRUGS, seed=3)
+    base = narrow_config(ds.num_labels)
+    base = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, encoder=dataclasses.replace(
+            base.model.encoder, gat=C.GATConfig(hidden_dims=(32, 32)),
+            han=C.HANConfig(hidden_dim=64, dropout=0.0),
+            rgcn=C.RGCNConfig(hidden_dim=64))))
+    runs = {f"{s}_{k}": alt_config(base, s, k) for s, k in ALT_ENCODERS}
+    runs["gat_hgt_bf16"] = alt_config(base, "gat", "hgt", bf16=True)
+    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
+                                    base.model.encoder.hgt.num_layers)
+    total = {"bilinear_scores": 0, "sorted_segment_sum": 0}
+    report = {}
+    for name, cfg in runs.items():
+        t0 = time.perf_counter()
+        start = random_model(cfg, ds, seed=1)
+        losses, counts, rows = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            batch, kg = DDICollator(ds, split="train", seed=0, device=dev,
+                                    kg_src_sort=True)()
+            trainer = FinetuneTrainer(cfg, batch, kg,
+                                      copy.deepcopy(start).to(dev))
+            with RowsSeen() as seen:
+                reset_launches()  # counts start here
+                losses[dev] = [trainer.train_epoch()
+                               for _ in range(ALT_SMALL_STEPS)]
+                counts[dev] = read_launches()  # counts end here
+            rows[dev] = sorted(set(seen.dtypes))
+        bf16 = name.endswith("bf16")
+        hgt = cfg.model.encoder.kg_encoder == "hgt"
+        want = {"bilinear_scores": 0,
+                "sorted_segment_sum": ALT_SMALL_STEPS * per_step * hgt}
+        require(counts["cuda"] == want and rows["cuda"] == (
+            (["bf16"] if bf16 else ["f32"]) if hgt else []),
+                f"alt_small {name}: launches {counts['cuda']} (expected "
+                f"{want}), K2 rows {rows['cuda']}")
+        tol = BF16_LOSS_RTOL if bf16 else 1e-4
+        err = 0.0
+        for lc, lg in zip(losses["cpu"], losses["cuda"]):
+            for k in lc:
+                rel = abs(lg[k] - lc[k]) / abs(lc[k])
+                require(np.isfinite(lg[k]) and rel <= tol,
+                        f"alt_small {name}: loss {k} on the card {lg[k]} "
+                        f"against {lc[k]} on the CPU (tolerance {tol})")
+                err = max(err, rel)
+        total = {k: total[k] + counts["cuda"][k] for k in total}
+        report[name] = {"losses_cuda": losses["cuda"],
+                        "losses_cpu": losses["cpu"],
+                        "max_rel_loss_err_vs_cpu": err, "tol": tol,
+                        "launches": counts["cuda"], "k2_rows": rows["cuda"],
+                        "run_s": time.perf_counter() - t0}
+    emit({"phase": "alt_small", "drugs": ds.num_drugs,
+          "steps": ALT_SMALL_STEPS, "widths": {
+              "feature_dim": base.model.encoder.feature_dim,
+              "gat": list(base.model.encoder.gat.hidden_dims),
+              "hgt": base.model.encoder.hgt.hidden_dim,
+              "han": 64, "rgcn": 64}, "runs": report})
+    return total
+
+
+def eight_heads_vs_cpu(ckpt: str, ds, scores: np.ndarray) -> dict:
+    """The model of `ckpt` on the CPU over `ds`: its ALT_HEADS_VS_CPU first
+    drugs' embeddings and their scores against one another, plainly,
+    against the card's `scores` [L, heads, N] of the same drugs (within
+    1e-4 of max|cpu|: the same f32 math summed in another order)."""
+    model, _ = P.model_from_checkpoint(ckpt, device="cpu")
+    coll = DDICollator(ds, split="train", seed=0, device="cpu")
+    ids = np.arange(ALT_HEADS_VS_CPU)
+    with torch.no_grad():
+        z = torch.from_numpy(P.embed_all_drugs(model, coll, coll.kg_batch(),
+                                               drug_ids=ids))
+        ref = bilinear.bilinear_scores_plain(
+            z, z, P.decoder_weight(model), torch.float32,
+            torch.float32).numpy()
+    got = scores[:, :ALT_HEADS_VS_CPU, :ALT_HEADS_VS_CPU]
+    err = float(np.abs(got - ref).max())
+    require(np.isfinite(got).all()
+            and err <= 1e-4 * float(np.abs(ref).max()),
+            f"{ckpt}: the card's scores of {ALT_HEADS_VS_CPU} drugs differ "
+            f"from the CPU's by {err} (max|cpu| {np.abs(ref).max()})")
+    return {"max_abs_err_vs_cpu": err,
+            "max_abs_cpu": float(np.abs(ref).max())}
+
+
+def serve_cut(model, ds) -> tuple:
+    """The serving phase's full-scale cut in process: every drug embedded
+    (one KG pass) and SERVE_HEADS heads scored against all 6,843 drugs for
+    all 960 outcomes through K1, with the launch counts set to 0 just
+    before and read just after. Returns (counts, scores, the kg_pass,
+    drug_encode and scoring seconds)."""
+    coll = DDICollator(ds, split="train", seed=0, device="cuda")
+    kg = coll.kg_batch()
+    times = PhaseTimes()
+    log = logging.getLogger("madrigal_tpu_torch")
+    log.addHandler(times)
+    log.setLevel(logging.INFO)
+    try:
+        reset_launches()  # counts start here
+        z = P.embed_all_drugs(model, coll, kg)
+        scores = P.score_all_pairs(model, z[:SERVE_HEADS], z,
+                                   label_chunk=LABEL_CHUNK)
+        counts = read_launches()  # counts end here
+    finally:
+        log.removeHandler(times)
+    n_chunks = -(-NUM_LABELS // LABEL_CHUNK)
+    require(counts == {"bilinear_scores": n_chunks, "sorted_segment_sum": 0}
+            and scores.shape == (NUM_LABELS, SERVE_HEADS, NUM_DRUGS)
+            and np.isfinite(scores).all() and np.isfinite(z).all(),
+            f"serving cut: launches {counts}, scores {scores.shape}")
+    return counts, scores, {k: times.seconds[k] for k in (
+        "kg_pass", "drug_encode", "scoring")}
+
+
+def phase_alt_encoders(ds):
+    """Each of gat/hgt, gin/han and gin/rgcn at full width (the
+    reference's GATConfig, HANConfig and RGCNConfig defaults, feature 128,
+    the flagship's fusion and decoder): the training CLI at the reference
+    scale / ALT_SHRINK for 1 epoch with TRAIN_MEMORY_FLAGS, then the
+    serving CLI on its checkpoint exporting the all-pairs scores through
+    K1 (ENSEMBLE_CHUNK outcomes a launch), its ALT_HEADS_VS_CPU first
+    drugs' scores against the CPU; and the serving phase's full-scale cut
+    on `ds` (the serving phase's dataset) with seeded random weights.
+    Each run's counts are set to 0 just before it and read just after."""
+    work = WORK / "alt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # K1's device time at the serving cut's shape (its launches here are
+    # comparison launches, outside every count)
+    k1_ms = k1_check(LABEL_CHUNK, SERVE_HEADS, NUM_DRUGS, torch.float32,
+                     torch.float32, seed=2, iters=20)["ms"]
+    small = reference_scale_kwargs(ALT_SHRINK)
+    n_small, l_small = small["num_drugs"], small["num_labels"]
+    hgt_layers = flagship_config(NUM_LABELS).model.encoder.hgt.num_layers
+    k2_epoch = k2_launches_per_step(list(reference_scale_kg_sizes()[1]),
+                                    hgt_layers)
+    total = {"bilinear_scores": 0, "sorted_segment_sum": 0}
+    report = {}
+    for s, k in ALT_ENCODERS:
+        name = f"{s}_{k}"
+        cfg = alt_config(flagship_config(NUM_LABELS), s, k)
+        save_dir, scores_path = work / name, work / f"{name}_scores.npy"
+        with Recorder() as rec:
+            rec.wrap(cli_common, "make_reference_scale_dataset", keep=True)
+            reset_launches()  # counts start here
+            t0 = time.perf_counter()
+            res = cli_train_ddi.main(train_argv(
+                TRAIN_MEMORY_FLAGS, 1, save_dir, shrink=ALT_SHRINK, cfg=cfg))
+            t_train = time.perf_counter() - t0
+            train_counts = read_launches()  # counts end here
+            reset_launches()  # counts start here
+            t0 = time.perf_counter()
+            cli_predict.main([
+                "--checkpoint", res["checkpoint"], "--synthetic_scale",
+                "--synthetic_scale_shrink", str(ALT_SHRINK), "--seed", "0",
+                "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
+                "--export_scores", str(scores_path)])
+            t_predict = time.perf_counter() - t0
+            predict_counts = read_launches()  # counts end here
+        train_ds, predict_ds = rec.results["make_reference_scale_dataset"]
+        want_k1 = -(-l_small // ENSEMBLE_CHUNK)
+        require(train_counts == {"bilinear_scores": 0,
+                                 "sorted_segment_sum": k2_epoch * (k == "hgt")}
+                and predict_counts == {"bilinear_scores": want_k1,
+                                       "sorted_segment_sum": 0}
+                and len(res["losses"]) == 1
+                and all(np.isfinite(v) for v in res["losses"][0].values()),
+                f"alt_encoders {name}: training launches {train_counts}, "
+                f"serving {predict_counts} (K1 {want_k1}), losses "
+                f"{res['losses']}")
+        scores = np.load(scores_path, mmap_mode="r")
+        require(scores.shape == (l_small, n_small, n_small),
+                f"alt_encoders {name}: scores {scores.shape}")
+        vs_cpu = eight_heads_vs_cpu(res["checkpoint"], predict_ds,
+                                    np.asarray(scores[:, :ALT_HEADS_VS_CPU]))
+        require(predict_ds.num_drugs == train_ds.num_drugs == n_small,
+                f"alt_encoders {name}: the CLIs built other datasets")
+        del scores
+        model = random_model(cfg, ds, seed=0).cuda()
+        cut_counts, cut, cut_s = serve_cut(model, ds)
+        # K1's share of scoring: its launches at their device time
+        cut_s["k1_share_of_scoring"] = (cut_counts["bilinear_scores"] * k1_ms
+                                        / (cut_s["scoring"] * 1e3))
+        del model, cut
+        torch.cuda.empty_cache()
+        for c in (train_counts, predict_counts, cut_counts):
+            total = {key: total[key] + c[key] for key in total}
+        report[name] = {
+            "train": {"shrink": ALT_SHRINK, "launches": train_counts,
+                      "losses": res["losses"],
+                      "epoch_s": res["epoch_seconds"], "cli_s": t_train},
+            "predict": {"launches": predict_counts, "cli_s": t_predict,
+                        "scores_vs_cpu": vs_cpu},
+            "serving_cut": {"launches": cut_counts, **cut_s}}
+        shutil.rmtree(save_dir)
+        scores_path.unlink()
+    emit({"phase": "alt_encoders", "drugs": NUM_DRUGS,
+          "outcomes": NUM_LABELS, "head_drugs": SERVE_HEADS,
+          "k1_serving_ms": k1_ms, "runs": report})
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def phase_bf16_train(ds):
+    """One full-scale stage-3 step of the flagship with both compute types
+    at bf16 and the data_dir phase's memory flags (HGT edge-type remat),
+    on the 80% training rows of `ds`: its loss, seconds and peak device
+    memory, K2's launches (one a live (layer, edge type), on bf16 rows);
+    then K2 on that step's own bf16 rows of the ppi edge type against its
+    plain version (k2_check's tolerance), timed beside the plain version,
+    `torch.segment_reduce` and the bytes bound. Returns (counts, the K2
+    row)."""
+    cfg = alt_config(flagship_config(NUM_LABELS), "gin", "hgt", bf16=True)
+    enc = cfg.model.encoder
+    cfg = dataclasses.replace(cfg, label_chunk_triples=LABEL_CHUNK,
+                              model=dataclasses.replace(
+                                  cfg.model, encoder=dataclasses.replace(
+                                      enc, hgt=dataclasses.replace(
+                                          enc.hgt, remat_edge_types=True))))
+    ppi = ("protein", "ppi", "protein")
+    e_real, e_pad, n_ppi = k2_shapes(TRAIN_SHRINK)[ppi]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch, kg = DDICollator(ds, split="train", seed=0, device="cuda",
+                            kg_src_sort=True)(split_rows(ds)["train"])
+    trainer = FinetuneTrainer(cfg, batch, kg,
+                              random_model(cfg, ds, seed=0).cuda())
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    with RowsSeen(keep=(e_pad, n_ppi)) as seen:
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        counts = read_launches()  # counts end here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = k2_launches_per_step(list(ds.kg_edge_indices),
+                                enc.hgt.num_layers)
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": want}
+            and seen.dtypes == ["bf16"] * want and seen.kept is not None
+            and all(np.isfinite(v) for v in losses.values()),
+            f"bf16_train: launches {counts} (K2 {want}), K2 rows "
+            f"{seen.dtypes}, losses {losses}")
+    data, starts, n = seen.kept
+    del trainer, batch, kg, seen
+    require(n == n_ppi and int(starts[-1]) == e_real,
+            f"bf16_train: the kept rows are not ppi's: {n} segments, "
+            f"{int(starts[-1])} rows")
+    row = {"edge_type": "__".join(ppi), "shrink": TRAIN_SHRINK,
+           "path": "bf16_train", **k2_rows_check(data, starts, n, iters=50)}
+    emit({"phase": "bf16_train", "drugs": NUM_DRUGS,
+          "train_rows": int(len(split_rows(ds)["train"])),
+          "compute_dtype": {"hgt": "bfloat16", "transformer": "bfloat16"},
+          "memory_flags": TRAIN_MEMORY_FLAGS, "losses": losses,
+          "build_s": t_build, "step_s": t_step, "launches": counts,
+          "k2_rows": "bf16", "peak_device_mem_gb": peak,
+          "k2_ppi_bf16": row})
+    del data, starts
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def reference_state_dict(sd: dict, enc, meta, generator) -> dict:
+    """The upstream Madrigal finetune checkpoint (NovelDDIMultilabel's
+    state_dict) that holds the port model's weights `sd`, for an encoder of
+    the flagship's modules (GIN, PyG 2.3 HGT, MLP cv, chemCPA without
+    drugs, x-attn fusion): torchdrug's GIN layout, MLPEncoder's `fc.{i}`
+    Sequentials, chemCPA's `network.{i}`, PyG 2.3's HGTConv, torch's packed
+    attention projections and the parametrized decoder weight. What the
+    reference holds and never reads (the chemCPA decoder, the HGT's output
+    heads of the other node types) is drawn from `generator`."""
+    from madrigal_tpu_torch.interop.torch_convert import (
+        mlp_encoder_linear_positions,
+    )
+
+    out = {}
+    rnd = lambda *shape: torch.randn(*shape, generator=generator)
+    wb, bn = ("weight", "bias"), ("weight", "bias", "running_mean",
+                                  "running_var")
+    E = "encoder."
+
+    def put(dst, src, names=("",)):
+        for p in names:
+            out[dst + p] = sd[src + p]
+
+    for i in range(len(enc.gin.hidden_dims) + 1):
+        s, d = f"{E}str_encoder.layer_{i}.", f"{E}str_encoder.layers.{i}."
+        put(d, s, ("eps", "edge_linear.weight", "edge_linear.bias"))
+        for j in range(enc.gin.num_mlp_layer):
+            put(f"{d}mlp.layers.{j}.", f"{s}mlp_{j}.", wb)
+        put(f"{d}batch_norm.", f"{s}bn.", bn)
+    for name, mc in (("cv_encoder", enc.cv), ("uni_projector", enc.proj),
+                     ("uni_fuser", enc.proj)):
+        lin, norm = mlp_encoder_linear_positions(len(mc.hidden_dims),
+                                                 mc.dropout, mc.norm)
+        for k, idx in enumerate(lin):
+            put(f"{E}{name}.fc.{idx}.", f"{E}{name}.dense_{k}.", wb)
+        for k, idx in enumerate(norm):
+            put(f"{E}{name}.fc.{idx}.", f"{E}{name}.norm_{k}.",
+                bn if mc.norm == "bn" else wb)
+    n_lin = enc.chemcpa.autoencoder_depth + 1
+    tx = f"{E}tx_encoder."
+    for k in range(n_lin):
+        put(f"{tx}encoder.network.{3 * k}.", f"{tx}encoder.dense_{k}.", wb)
+        w = sd[f"{tx}encoder.dense_{n_lin - 1 - k}.weight"]
+        out[f"{tx}decoder.network.{3 * k}.weight"] = rnd(w.shape[1],
+                                                         w.shape[0])
+        out[f"{tx}decoder.network.{3 * k}.bias"] = rnd(w.shape[1])
+        if k < n_lin - 1:
+            put(f"{tx}encoder.network.{3 * k + 1}.", f"{tx}encoder.bn_{k}.",
+                bn)
+            for p in bn:
+                out[f"{tx}decoder.network.{3 * k + 1}.{p}"] = (
+                    rnd(w.shape[1]).abs() + 0.5)
+    out[f"{tx}covariates_embeddings.0.weight"] = sd[
+        f"{tx}cov_embedding.weight"]
+    hgt, kg = enc.hgt, f"{E}kg_encoder."
+    R = len(meta.edge_types)
+    for i in range(hgt.num_layers):
+        s, d = f"{kg}conv_{i}.", f"{kg}convs.{i}."
+        for nt in meta.node_types:
+            put(f"{d}kqv_lin.lins.{nt}.", f"{s}kqv__{nt}.", wb)
+            for p in wb:
+                src = sd.get(f"{s}out__{nt}.{p}")
+                out[f"{d}out_lin.lins.{nt}.{p}"] = (
+                    src if src is not None else rnd(
+                        *(hgt.hidden_dim,) * (2 if p == "weight" else 1)))
+            src = sd.get(f"{s}skip__{nt}")
+            out[f"{d}skip.{nt}"] = src if src is not None else rnd(1)
+        for rel in ("k_rel", "v_rel"):
+            per = [sd[f"{s}{rel}__{kg_lib.edge_key(et)}"]
+                   for et in meta.edge_types]
+            w = torch.empty((hgt.att_heads * R,) + tuple(per[0].shape[1:]))
+            for ei, blocks in enumerate(per):
+                w[torch.arange(hgt.att_heads) * R + ei] = blocks
+            out[f"{d}{rel}.weight"] = w
+        for et in meta.edge_types:
+            out[f"{d}p_rel.{'__'.join(et)}"] = sd[
+                f"{s}p_rel__{kg_lib.edge_key(et)}"].reshape(1, -1)
+    for nt in meta.node_types:
+        for p in wb:
+            src = sd[f"{kg}lin__drug.{p}"]
+            out[f"{kg}lin_dict.{nt}.{p}"] = (src if nt == "drug"
+                                             else rnd(*src.shape))
+    t = f"{E}transformer."
+    put(f"{t}embed2latent.", f"{t}embed2latent.", wb)
+    put(f"{t}latent2embed.", f"{t}latent2embed.", wb)
+
+    def mha(d, s):
+        for p in wb:
+            out[f"{d}in_proj_{p}"] = torch.cat(
+                [sd[f"{s}{x}_proj.{p}"] for x in "qkv"])
+        put(f"{d}out_proj.", f"{s}out_proj.", wb)
+
+    for i in range(enc.transformer.num_layers):
+        s = f"{t}transformer_encoder.layer_{i}."
+        d = f"{t}transformer_encoder.layers.{i}."
+        mha(d + "self_attn.", s + "self_attn.")
+        for name in ("linear1", "linear2", "norm1", "norm2"):
+            put(f"{d}{name}.", f"{s}{name}.", wb)
+    if enc.transformer.agg == "x-attn":
+        mha(f"{t}x_attn_mha_layer.", f"{t}x_attn_mha.")
+        for name in ("x_attn_kv_norm", "x_attn_query_norm"):
+            put(f"{t}{name}.", f"{t}{name}.", wb)
+        put(f"{t}x_attn_query", f"{t}x_attn_query")
+    for name in ("tx_bottleneck_tokens", "cls", "pos_encoder.pe"):
+        if E + name in sd:
+            put(E + name, E + name)
+    out["decoder.parametrizations.weight.original"] = sd["decoder.weight"]
+    return out
+
+
+def phase_reference_ckpt(ds):
+    """A reference-format (upstream Madrigal) finetune state_dict at the
+    flagship's widths with the PyG 2.3 HGT (softmax_scope='global'), made
+    here from seeded random weights (`reference_state_dict`):
+    `state_dict_from_reference` must give back every entry of the model,
+    each equal to the weight it came from, and nothing the model lacks;
+    the model holding it serves the full-scale cut through K1 (counts set
+    to 0 just before, read just after) and its ALT_HEADS_VS_CPU first
+    drugs' scores are held to the CPU. Then the same encoder as a
+    contrastive (stage-2) state_dict through
+    `stage2_checkpoint_from_reference` and the stage-3 warm start: every
+    parameter the filter keeps equals the checkpoint's, every other the
+    fresh model's, exactly."""
+    from madrigal_tpu_torch.interop.from_flax import (
+        stage2_checkpoint_from_reference,
+        state_dict_from_reference,
+    )
+
+    work = WORK / "reference_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = flagship_config(NUM_LABELS)
+    enc = dataclasses.replace(cfg.model.encoder, hgt=dataclasses.replace(
+        cfg.model.encoder.hgt, softmax_scope="global"))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encoder=enc))
+    meta = kg_lib.KGMetadata(sorted(ds.kg_node_feats),
+                             sorted(ds.kg_edge_indices))
+    src = random_model(cfg, ds, seed=5).state_dict()
+    t0 = time.perf_counter()
+    ref = reference_state_dict(src, enc, meta,
+                               torch.Generator().manual_seed(6))
+    converted = state_dict_from_reference(ref, enc, meta)
+    t_convert = time.perf_counter() - t0
+    require(set(converted) == set(src) and all(
+        torch.equal(converted[k], src[k]) for k in src),
+            "reference_ckpt: the converted state_dict is not the model's: "
+            f"{sorted(set(src) ^ set(converted))[:5]}")
+    model = random_model(cfg, ds, seed=7)
+    missing, unexpected = model.load_state_dict(converted, strict=False)
+    require(not missing and not unexpected,
+            f"reference_ckpt: missing {missing[:5]}, unexpected "
+            f"{unexpected[:5]}")
+    ckpt = str(work / "reference_finetune.pt")
+    save_checkpoint(ckpt, model, cfg)
+    counts, scores, cut_s = serve_cut(model.cuda(), ds)
+    del model
+    vs_cpu = eight_heads_vs_cpu(ckpt, ds, scores[:, :ALT_HEADS_VS_CPU])
+    del scores
+    # the contrastive checkpoint's encoder, and the stage-3 warm start
+    cl = {"base_encoder." + k[len("encoder."):]: v for k, v in ref.items()
+          if k.startswith("encoder.")}
+    stage2 = str(work / "reference_cl.pt")
+    stage2_checkpoint_from_reference(cl, stage2, C.PretrainConfig(
+        encoder=enc), meta, use_pretrained_adaptor=False)
+    fresh = random_model(cfg, ds, seed=8)
+    before = {k: v.clone() for k, v in fresh.state_dict().items()}
+    kept = ckpt_lib.warm_start_encoder(fresh, load_checkpoint(stage2)[0])
+    dropped = CL_TRANSFER_DROP_TOP + ("uni_projector",)
+    warm = {"from_checkpoint": 0, "fresh": 0}
+    for k, v in fresh.named_parameters():
+        top = k.split(".")[1] if k.startswith("encoder.") else None
+        taken = top is not None and top not in dropped
+        require(torch.equal(v.detach(), src[k] if taken else before[k]),
+                f"reference_ckpt warm start: {k} is not the "
+                f"{'checkpoint' if taken else 'fresh init'}'s")
+        warm["from_checkpoint" if taken else "fresh"] += 1
+    require(warm["from_checkpoint"] == len(kept),
+            f"reference_ckpt: the warm start took {len(kept)} entries, "
+            f"{warm['from_checkpoint']} expected")
+    emit({"phase": "reference_ckpt", "hgt_layout": "pyg23",
+          "softmax_scope": "global", "reference_entries": len(ref),
+          "model_entries": len(src), "convert_s": t_convert,
+          "serving_cut": {"launches": counts, **cut_s},
+          "scores_vs_cpu": vs_cpu, "warm_start": warm})
+    shutil.rmtree(work)
+    return counts
+
+
 # --train_memory: each choice of memory flags for the training run
 MEMORY_CHOICES = [
     [],
@@ -2189,6 +2746,22 @@ def phase_build(native: bool = False) -> None:
                   "seconds": time.perf_counter() - t0})
 
 
+ALT_PHASES = ("alt_small", "alt_encoders", "bf16_train", "reference_ckpt")
+
+
+def alt_phases(run, ds) -> tuple:
+    """The phases of the alternative encoders, the bf16 mode and the
+    reference's checkpoints (ALT_PHASES), through `run`, on the
+    reference-scale dataset `ds`: (each one's launch counts, K2's timing
+    row on the bf16 step's rows)."""
+    paths = {"alt_small": run("alt_small", phase_alt_small),
+             "alt_encoders": run("alt_encoders", phase_alt_encoders, ds)}
+    paths["bf16_train"], k2_bf16 = run("bf16_train", phase_bf16_train, ds)
+    paths["reference_ckpt"] = run("reference_ckpt", phase_reference_ckpt,
+                                  ds)
+    return paths, k2_bf16
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2238,9 +2811,9 @@ def main(argv) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         print(gpu_line(), flush=True)
         return 0
-    if argv not in ([], ["--kernels"]):
+    if argv not in ([], ["--kernels"], ["--alt"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "--kernels, --pretrain, --stage1 or --train_memory")
+                 "--kernels, --pretrain, --stage1, --alt or --train_memory")
 
     wall = {}
 
@@ -2250,6 +2823,15 @@ def main(argv) -> int:
         wall[name] = time.perf_counter() - t0
         return res
 
+    if argv == ["--alt"]:
+        run("build", phase_build)
+        alt_phases(run, run("data", make_reference_scale_dataset))
+        emit({"phase": "wall", "seconds": wall,
+              "budget": {"alt_s": sum(wall[p] for p in ALT_PHASES),
+                         "alt_limit_s": ALT_BUDGET_S}})
+        shutil.rmtree(WORK, ignore_errors=True)
+        print(gpu_line(), flush=True)
+        return 0
     run("build", phase_build, argv == [])
     if argv == ["--kernels"]:
         phase_kernels()
@@ -2259,10 +2841,15 @@ def main(argv) -> int:
     k1_checks = run("kernels", phase_kernels)
     k2_checks = run("k2_kernels", phase_k2_kernels)
     run("small", phase_small)
-    serving, model, z = run("serving", phase_serving)
+    serving, model, z, ds = run("serving", phase_serving)
     paths = {"serving": serving}
     paths["ranks"], finish_ranks = run("ranks", phase_ranks, model, z)
     del model, z
+    # the alternative encoders, the bf16 mode and the reference's
+    # checkpoints, on the serving phase's dataset
+    alt_paths, k2_bf16 = alt_phases(run, ds)
+    paths.update(alt_paths)
+    del ds
     # the rank references run on the host beside the next three phases
     paths["predict_ensemble"] = run("predict_ensemble",
                                     phase_predict_ensemble)
@@ -2288,15 +2875,18 @@ def main(argv) -> int:
     stage2_s = sum(wall[p] for p in ("pretrain_small", "pretrain",
                                      "pretrain_final_embeds"))
     stage1_s = wall["stage1_small"] + wall["stage1"]
+    alt_s = sum(wall[p] for p in ALT_PHASES)
     emit({"phase": "wall", "seconds": wall, "main_s": main_s,
           "budget": {"stage2_s": stage2_s, "stage2_limit_s": STAGE2_BUDGET_S,
                      "stage2_met": stage2_s <= STAGE2_BUDGET_S,
                      "stage1_s": stage1_s, "stage1_limit_s": STAGE1_BUDGET_S,
                      "stage1_met": stage1_s <= STAGE1_BUDGET_S,
+                     "alt_s": alt_s, "alt_limit_s": ALT_BUDGET_S,
+                     "alt_met": alt_s <= ALT_BUDGET_S,
                      "main_limit_s": MAIN_BUDGET_S,
                      "main_met": main_s <= MAIN_BUDGET_S}})
 
-    def entry(name, source, replaces, checks, shape_keys):
+    def entry(name, source, replaces, checks, shape_keys, extra=()):
         timed = [r for r in checks if "ms" in r]
         by_path = {p: c[name] for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
@@ -2308,7 +2898,7 @@ def main(argv) -> int:
                 "bound_by": timed[-1]["bound_by"],
                 "library_ms": timed[-1]["library_ms"],
                 "timed_at": {k: timed[-1][k] for k in shape_keys},
-                "timings": timed}
+                "timings": timed + list(extra)}
 
     # K1: timed last at the all-pairs bench shape, bf16 in and out, and
     # launched on the serving, rank and ensemble paths; K2: timed last at
@@ -2323,7 +2913,8 @@ def main(argv) -> int:
               ("L", "M", "N", "compute", "out")),
         entry("sorted_segment_sum", "madrigal_tpu_torch/csrc/segment_sum.cu",
               "madrigal_tpu/ops/segment_pallas.py:62", k2_checks,
-              ("edge_type", "shrink", "E", "E_real", "N", "W", "in"))]})
+              ("edge_type", "shrink", "E", "E_real", "N", "W", "in"),
+              extra=[k2_bf16])]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ import torch
 from ..device import resolve_device
 from .batch import DrugModalityBatch
 from .kg import HeteroKGBatch, build_kg_batch, drug_row_lookup
+from .kg_sampling import sample_kg_subgraph
 from .molgraph import pack_molecules
 from .negative_sampling import structured_negative_sampling_multilabel
 from .synthetic import EdgeTable, SyntheticDataset
@@ -124,12 +125,28 @@ class DDICollator:
             cache[key] = out
         return out
 
-    def kg_batch(self) -> HeteroKGBatch:
+    def kg_batch(self, seed_drug_ids=None,
+                 kg_sampling_num_neighbors: Optional[int] = None,
+                 kg_sampling_num_layers: int = 2) -> HeteroKGBatch:
         """The full-KG batch (the reference's default path,
         data_utils.py:330-332), in the plain layout, with the
         source-sorted layout when the collator was built with
-        kg_src_sort."""
+        kg_src_sort. With `kg_sampling_num_neighbors`, a drug-rooted
+        sampled subgraph instead (`data/kg_sampling.py`; the reference's
+        sample_kg_data), seeded at the KG drug rows of `seed_drug_ids`
+        (all drugs when None) and drawn from the collator's rng. Its drug
+        table holds the kept drugs only: gather from it through its
+        drug_index_map (`kg.drug_row_lookup`)."""
         ds = self.ds
+        if kg_sampling_num_neighbors:
+            seeds = (np.nonzero(np.isin(ds.kg_drug_ids, seed_drug_ids))[0]
+                     if seed_drug_ids is not None
+                     else np.arange(len(ds.kg_drug_ids)))
+            sub, _ = sample_kg_subgraph(
+                ds.kg_node_feats, ds.kg_edge_indices, ds.kg_drug_ids, seeds,
+                kg_sampling_num_neighbors, kg_sampling_num_layers,
+                rng=self.rng, device=self.device, src_sort=self.kg_src_sort)
+            return sub
         return build_kg_batch(ds.kg_node_feats, ds.kg_edge_indices,
                               ds.kg_drug_ids, device=self.device,
                               src_sort=self.kg_src_sort)

@@ -25,6 +25,12 @@ JAX stage-1 trainers' variables load into the port's stage-1 models
 (`train/modality_pretrain.py`) through the `*_state_dict` functions below,
 and a JAX stage-1 checkpoint becomes a port one with
 `stage1_checkpoint_from_flax`.
+
+The reference's own (upstream Madrigal) checkpoints come in through the
+copies of the JAX package's converters (`interop/convert_checkpoint.py`,
+`interop/torch_convert.py`), which give flax trees, and this module:
+`state_dict_from_reference` for a finetune (stage-3) state_dict and
+`stage2_checkpoint_from_reference` for a contrastive (stage-2) one.
 """
 from __future__ import annotations
 
@@ -173,3 +179,92 @@ def stage1_checkpoint_from_flax(tree: Mapping, path: str, cfg,
     save_checkpoint(path, flax_to_state_dict(
         {"params": tree["params"],
          "batch_stats": tree.get("batch_stats") or {}}), cfg, epoch=epoch)
+
+
+def _unread_reference_entries(sd: Mapping[str, torch.Tensor], enc_cfg,
+                              kg_metadata, prefix: str = "encoder.") -> set:
+    """Entries of a converted reference state_dict that the port's model
+    has no slot for and the reference never reads in its forward: the
+    chemCPA decoder (a stage-1 head; the stage-3 encoder has none), and
+    per HGT layer the PyG output Linear and skip gate of a node type that
+    no edge type reaches (its input passes through), and the skip gate of
+    one whose input width is not the hidden width (PyG applies it only
+    when the widths match). The JAX model holds them in its tree and
+    never reads them either. `prefix` is the encoder's."""
+    drop = {k for k in sd if k.startswith(prefix + "tx_encoder.decoder.")}
+    pre = prefix + "kg_encoder."
+    if kg_metadata is None or not any(k.startswith(pre) for k in sd):
+        return drop
+    dst_types = {tuple(et)[2] for et in kg_metadata.edge_types}
+    widths = {nt: int(sd[f"{pre}conv_0.kqv__{nt}.weight"].shape[1])
+              for nt in kg_metadata.node_types}
+    for i in range(enc_cfg.hgt.num_layers):
+        for nt in kg_metadata.node_types:
+            if nt not in dst_types:
+                drop |= {f"{pre}conv_{i}.out__{nt}.weight",
+                         f"{pre}conv_{i}.out__{nt}.bias"}
+            if nt not in dst_types or widths[nt] != enc_cfg.hgt.hidden_dim:
+                drop.add(f"{pre}conv_{i}.skip__{nt}")
+        widths = {nt: (enc_cfg.hgt.hidden_dim if nt in dst_types else w)
+                  for nt, w in widths.items()}
+    return drop & set(sd)
+
+
+def state_dict_from_reference(state_dict: Mapping, enc_cfg, kg_metadata
+                              ) -> Dict[str, torch.Tensor]:
+    """An upstream Madrigal finetune checkpoint's state_dict
+    (NovelDDIMultilabel: `encoder.*` and the decoder's parametrized
+    weight) as entries of the port's MadrigalMultilabel state_dict, which
+    load with `model.load_state_dict(sd, strict=False)` as the reference
+    loads with strict=False: the modules it holds are replaced, the
+    others keep their fresh values (convert_checkpoint.py:36-37).
+
+    `enc_cfg` is the port's EncoderConfig and `kg_metadata` the KG's
+    (`HeteroKGBatch.metadata`; node and edge types). The HGT is read in
+    the PyG 2.3 layout under softmax_scope='global' or the PyG <= 2.2
+    layout under 'per_edge_type'; a layout whose scope does not match
+    the config raises ValueError, and with `kg_metadata` a KG encoder in
+    neither layout raises KeyError. Entries that the reference never
+    reads and the port's model has no slot for are left out
+    (`_unread_reference_entries`), so nothing the result holds is
+    unexpected to the model."""
+    from .convert_checkpoint import convert_reference_finetune_checkpoint
+
+    params, stats = convert_reference_finetune_checkpoint(
+        state_dict, enc_cfg, kg_metadata, strict_kg=kg_metadata is not None)
+    sd = flax_to_state_dict({"params": params, "batch_stats": stats})
+    drop = _unread_reference_entries(sd, enc_cfg, kg_metadata)
+    return {k: v for k, v in sd.items() if k not in drop}
+
+
+def stage2_checkpoint_from_reference(state_dict: Mapping, path: str, cfg,
+                                     kg_metadata,
+                                     use_pretrained_adaptor: bool = False
+                                     ) -> None:
+    """Write an upstream Madrigal contrastive (stage-2) checkpoint's
+    state_dict (`base_encoder.*`) as a port stage-2 checkpoint that
+    `cli.train_ddi --checkpoint` warm-starts from unchanged.
+
+    The reference's CL -> finetune filter runs first
+    (`convert_reference_cl_checkpoint`: the fusion modules, the
+    positional encoding, the CLS and bottleneck tokens go, and the uni
+    projector unless `use_pretrained_adaptor`; reference
+    utils.py:281-296), then the encoder is written under `base_encoder`
+    as `stage2_checkpoint_from_flax` writes a JAX run's, without the
+    entries `state_dict_from_reference` leaves out. `cfg` is the run's
+    config as the port's dataclass (a PretrainConfig, a TrainConfig or
+    an EncoderConfig), from which the encoder's config is read;
+    `kg_metadata` is the KG's, as for `state_dict_from_reference`."""
+    from ..train.checkpoint import save_checkpoint
+    from .convert_checkpoint import convert_reference_cl_checkpoint
+
+    enc_cfg = getattr(cfg, "encoder", None) or getattr(
+        getattr(cfg, "model", None), "encoder", None) or cfg
+    params, stats = convert_reference_cl_checkpoint(
+        state_dict, enc_cfg, kg_metadata, use_pretrained_adaptor)
+    sd = flax_to_state_dict({"params": {"base_encoder": params},
+                             "batch_stats": {"base_encoder": stats}})
+    drop = _unread_reference_entries(sd, enc_cfg, kg_metadata,
+                                     prefix="base_encoder.")
+    save_checkpoint(path, {k: v for k, v in sd.items() if k not in drop},
+                    cfg, epoch=0)

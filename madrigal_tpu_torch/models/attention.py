@@ -13,6 +13,14 @@ None recomputes everything, 'dots' keeps the outputs of the Linear layers
 (the matmuls without batch dimensions, `mm` / `addmm`) and recomputes the
 attention products, softmax and elementwise work, 'all' keeps everything
 (no recompute inside the layer).
+
+`compute_dtype='bfloat16'` is the JAX package's throughput mode
+(attention.py:37-90, 105-132): the q/k/v/out projections and both
+feed-forward Linears run on bf16 activations and bf16 copies of their
+weights, the attention logits are taken in float32 from the bf16 q and k,
+and the softmax, the returned weights, the LayerNorms and the residual
+stream stay float32; the parameters stay float32. 'float32' (or None)
+inserts no cast.
 """
 from __future__ import annotations
 
@@ -29,14 +37,51 @@ from .remat import remat
 NEG_INF = -1e9
 
 
+def reduced_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """None for None or 'float32' (no casts anywhere), else the torch
+    dtype of a reduced compute type such as 'bfloat16'."""
+    if compute_dtype in (None, "float32"):
+        return None
+    dtype = getattr(torch, compute_dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return dtype
+
+
+def dense(lin: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`lin(x)`, or with a reduced `dtype` the flax Dense of that dtype:
+    the product of the cast input and weight, rounded, then the cast bias
+    added and rounded again."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
+def reduced_activation(actn: str):
+    """The activation as JAX evaluates it on reduced-precision input: its
+    exact GELU, 0.5 * x * erfc(-x * sqrt(1/2)), rounds after every
+    operation (and its constant to the type); the other activations are
+    one rounding either way."""
+    if actn not in ("gelu", "gelu_exact"):
+        return activation(actn)
+
+    def gelu(x):
+        return 0.5 * x * torch.special.erfc(
+            -x * torch.tensor(0.5 ** 0.5, dtype=x.dtype))
+    return gelu
+
+
 class MultiheadAttention(nn.Module):
     """q/k/v/out projections as four Linear layers (the JAX head layout:
     head h owns features [h*D, (h+1)*D) of each projection)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 compute_dtype: str | None = "float32"):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % heads {num_heads}")
+        self.dtype = reduced_dtype(compute_dtype)
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout = dropout
         self.q_proj = nn.Linear(embed_dim, embed_dim)
@@ -55,10 +100,19 @@ class MultiheadAttention(nn.Module):
         Tk = key.shape[1]
         H = self.num_heads
         D = E // H
-        q = self.q_proj(query).reshape(B, Tq, H, D).transpose(1, 2)
-        k = self.k_proj(key).reshape(B, Tk, H, D).transpose(1, 2)
-        v = self.v_proj(value).reshape(B, Tk, H, D).transpose(1, 2)
-        logits = torch.matmul(q * (1.0 / math.sqrt(D)), k.transpose(-1, -2))
+        dt = self.dtype
+        q = dense(self.q_proj, query, dt).reshape(B, Tq, H, D).transpose(1, 2)
+        k = dense(self.k_proj, key, dt).reshape(B, Tk, H, D).transpose(1, 2)
+        v = dense(self.v_proj, value, dt).reshape(B, Tk, H, D).transpose(1, 2)
+        if dt is None:
+            logits = torch.matmul(q * (1.0 / math.sqrt(D)),
+                                  k.transpose(-1, -2))
+        else:
+            # JAX scales by 1 / sqrt(D) taken in the compute type, and
+            # takes the logits in float32 from the reduced q and k
+            scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=dt))
+            logits = torch.matmul((q * scale).float(),
+                                  k.float().transpose(-1, -2))
         mask = torch.zeros((B, 1, Tq, Tk), dtype=torch.bool,
                            device=query.device)
         if key_padding_mask is not None:
@@ -68,20 +122,24 @@ class MultiheadAttention(nn.Module):
         logits = logits.masked_fill(mask, NEG_INF)
         weights = torch.softmax(logits, dim=-1)
         weights = F.dropout(weights, self.dropout, self.training)
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(B, Tq, E)
-        out = self.out_proj(out)
+        out = torch.matmul(weights if dt is None else weights.to(dt), v)
+        out = dense(self.out_proj, out.transpose(1, 2).reshape(B, Tq, E), dt)
         return (out, weights) if return_weights else out
 
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, actn: str = "relu",
-                 norm_first: bool = False):
+                 norm_first: bool = False,
+                 compute_dtype: str | None = "float32"):
         super().__init__()
+        self.dtype = reduced_dtype(compute_dtype)
         self.dropout = dropout
         self.norm_first = norm_first
-        self.act = activation(actn)
-        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.act = (activation(actn) if self.dtype is None
+                    else reduced_activation(actn))
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout,
+                                            compute_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
@@ -89,6 +147,11 @@ class TransformerEncoderLayer(nn.Module):
 
     def _drop(self, x):
         return F.dropout(x, self.dropout, self.training)
+
+    def _up(self, x):
+        """Back to the residual stream's float32 (no cast in float32
+        mode)."""
+        return x if self.dtype is None else x.float()
 
     def forward(self, x, key_padding_mask=None, attn_mask=None,
                 return_weights: bool = False):
@@ -100,11 +163,12 @@ class TransformerEncoderLayer(nn.Module):
                                  return_weights=return_weights)
             if return_weights:
                 out, weights = out
-            return self._drop(out)
+            return self._up(self._drop(out))
 
         def ff(h):
-            return self._drop(self.linear2(self._drop(
-                self.act(self.linear1(h)))))
+            dt = self.dtype
+            return self._up(self._drop(dense(self.linear2, self._drop(
+                self.act(dense(self.linear1, h, dt))), dt)))
 
         if self.norm_first:
             x = x + sa(self.norm1(x))
@@ -123,7 +187,8 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int, dropout: float = 0.1,
                  actn: str = "relu", norm_first: bool = False,
-                 remat: bool = False, remat_policy: str | None = None):
+                 remat: bool = False, remat_policy: str | None = None,
+                 compute_dtype: str | None = "float32"):
         super().__init__()
         if remat_policy not in (None, "dots", "all"):
             raise ValueError(f"unknown remat_policy {remat_policy!r} "
@@ -133,7 +198,8 @@ class TransformerEncoder(nn.Module):
         self.remat_policy = remat_policy
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
-                d_model, nhead, dim_feedforward, dropout, actn, norm_first))
+                d_model, nhead, dim_feedforward, dropout, actn, norm_first,
+                compute_dtype))
 
     def forward(self, x, key_padding_mask=None, attn_mask=None,
                 return_last_attn: bool = False):

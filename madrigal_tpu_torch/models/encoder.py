@@ -8,6 +8,11 @@ drugs with a single modality take the MLP fuser instead (select-based
 routing: both paths run for every row). Drugs absent from the KG get a
 zero KG token. The KG table is computed once and shared by every encode.
 
+The structure encoder is the GIN or the GAT (`str_encoder`), the KG
+encoder the HGT, HAN or RGCN (`kg_encoder`, 'han' and 'rgcn' matched as
+substrings, as the JAX package matches them); only the KG encoder's drug
+output reaches the fusion.
+
 Unlike flax, torch modules need their input widths up front: the KG
 schema (node feature width per node type, edge types) is a constructor
 argument, taken from the dataset (`data.kg.kg_schema`) or from a saved
@@ -30,8 +35,10 @@ from ..device import resolve_device
 from .chemcpa import ChemCPAEncoder
 from .decoder import BilinearDDIScorer
 from .fusion import PositionEncoding, TransformerFusion, build_bottleneck_masks
+from .gat import GATEncoder
 from .gin import GINEncoder
 from .hgt import HGTEncoder
+from .kg_alt import HANEncoder, RGCNEncoder
 from .mlp import MLPEncoder
 
 
@@ -59,25 +66,46 @@ class MadrigalEncoder(nn.Module):
         super().__init__()
         c = cfg
         self.cfg = c
-        if c.str_encoder != "gin":
-            raise NotImplementedError(
-                f"str_encoder={c.str_encoder!r}: only 'gin' is ported "
-                "(ROADMAP: alternatives and extras)")
-        if c.kg_encoder not in ("hgt", "hgt_drug_edge_only"):
-            raise NotImplementedError(
-                f"kg_encoder={c.kg_encoder!r}: only 'hgt' is ported "
-                "(ROADMAP: alternatives and extras)")
         if c.fusion not in ("transformer_uni_proj", "transformer", "mean",
                             "add"):
             raise NotImplementedError(c.fusion)
-        self.str_encoder = GINEncoder(
-            hidden_dims=tuple(c.gin.hidden_dims) + (c.feature_dim,),
-            num_mlp_layer=c.gin.num_mlp_layer, eps_init=c.gin.eps,
-            learn_eps=c.gin.learn_eps, batch_norm=c.gin.batch_norm,
-            actn=c.gin.actn, readout=c.gin.readout,
-            input_dim=c.gin.atom_dim, edge_input_dim=c.gin.edge_input_dim)
-        self.kg_encoder = HGTEncoder(c.hgt, c.feature_dim, kg_node_dims,
-                                     kg_edge_types, drug_only_head=True)
+        if c.str_encoder == "gin":
+            self.str_encoder = GINEncoder(
+                hidden_dims=tuple(c.gin.hidden_dims) + (c.feature_dim,),
+                num_mlp_layer=c.gin.num_mlp_layer, eps_init=c.gin.eps,
+                learn_eps=c.gin.learn_eps, batch_norm=c.gin.batch_norm,
+                actn=c.gin.actn, readout=c.gin.readout,
+                input_dim=c.gin.atom_dim, edge_input_dim=c.gin.edge_input_dim)
+        elif c.str_encoder == "gat":
+            self.str_encoder = GATEncoder(
+                hidden_dims=tuple(c.gat.hidden_dims) + (c.feature_dim,),
+                num_head=c.gat.att_heads, negative_slope=c.gat.negative_slope,
+                batch_norm=c.gat.batch_norm, actn=c.gat.actn,
+                readout=c.gat.readout, input_dim=c.gat.atom_dim,
+                edge_input_dim=c.gat.edge_input_dim)
+        else:
+            raise NotImplementedError(c.str_encoder)
+        # the KG encoder is chosen as the JAX package chooses it: 'han' and
+        # 'rgcn' by substring
+        if c.kg_encoder in ("hgt", "hgt_drug_edge_only"):
+            self.kg_encoder = HGTEncoder(c.hgt, c.feature_dim, kg_node_dims,
+                                         kg_edge_types, drug_only_head=True)
+        elif "han" in c.kg_encoder:
+            self.kg_encoder = HANEncoder(c.han, c.feature_dim, kg_node_dims,
+                                         kg_edge_types)
+        elif "rgcn" in c.kg_encoder:
+            widths = set(kg_node_dims.values())
+            if len(widths) != 1:
+                raise ValueError("the RGCN concatenates every node type's "
+                                 f"features; their widths differ: "
+                                 f"{dict(kg_node_dims)}")
+            r = c.rgcn
+            self.kg_encoder = RGCNEncoder(
+                widths.pop(), len(kg_edge_types), r.hidden_dim,
+                c.feature_dim, num_layers=r.num_layers,
+                num_bases=r.num_bases, aggr=r.aggr, actn=r.actn)
+        else:
+            raise NotImplementedError(c.kg_encoder)
         self.cv_encoder = _mlp(c.cv.input_dim, c.feature_dim, c.cv)
         # one MLP a non-tx tabular modality beyond str/kg/cv (the
         # NON_TX_MODALITIES environment variable, e.g. 'bs'); its token
@@ -286,28 +314,51 @@ class MadrigalMultilabel(nn.Module):
 
 def kg_schema_from_state_dict(state_dict: Dict[str, torch.Tensor]):
     """(node feature width per node type, edge types) read back from a
-    MadrigalMultilabel state_dict: the first HGT layer's `kqv__<type>`
-    inputs and `k_rel__<src>__<rel>__<dst>` names."""
-    pre = "encoder.kg_encoder.conv_0."
+    MadrigalMultilabel state_dict: the first KG layer's per-type input
+    projections (HGT `kqv__<type>`, HAN `proj__<type>`) and per-relation
+    parameters (HGT `k_rel__<src>__<rel>__<dst>`, HAN `att_src__...`).
+    An RGCN's parameters name no type: its schema is one node type,
+    'drug', of the common feature width (`bases_0`'s input) and one
+    placeholder edge type a relation (`coeffs_0`'s rows), which is all
+    that its shapes depend on; it reads the types from the KG batch."""
+    pre = "encoder.kg_encoder."
+    if pre + "bases_0" in state_dict:
+        n_rel = int(state_dict[pre + "coeffs_0"].shape[0])
+        return ({"drug": int(state_dict[pre + "bases_0"].shape[1])},
+                tuple(("", f"relation_{r}", "") for r in range(n_rel)))
+    pre += "conv_0."
     dims, edge_types = {}, []
     for k, v in state_dict.items():
         if not k.startswith(pre):
             continue
         name = k[len(pre):]
-        if name.startswith("kqv__") and name.endswith(".weight"):
-            dims[name[len("kqv__"):-len(".weight")]] = int(v.shape[1])
-        elif name.startswith("k_rel__"):
-            edge_types.append(tuple(name[len("k_rel__"):].split("__")))
+        for lin in ("kqv__", "proj__"):
+            if name.startswith(lin) and name.endswith(".weight"):
+                dims[name[len(lin):-len(".weight")]] = int(v.shape[1])
+        for rel in ("k_rel__", "att_src__"):
+            if name.startswith(rel):
+                edge_types.append(tuple(name[len(rel):].split("__")))
     return dims, tuple(sorted(edge_types))
+
+
+def _glorot_uniform_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's glorot_uniform: fans over the last two axes, times the
+    product of the others."""
+    field = p[..., 0, 0].numel() if p.dim() > 2 else 1
+    fan_in, fan_out = p.shape[-2] * field, p.shape[-1] * field
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    p.uniform_(-bound, bound, generator=generator)
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator` with the JAX package's
     initializer families: Dense kernels lecun-normal with zero bias,
-    norms ones/zeros, HGT relation matrices glorot-uniform, p_rel and
-    skip gates ones, embeddings and learned tokens standard normal, the
-    decoder U(-1/sqrt(D), 1/sqrt(D)). Streams differ from JAX's."""
+    norms ones/zeros, HGT relation matrices, GAT and HAN attention
+    vectors and RGCN bases and coefficients glorot-uniform, HAN's
+    semantic query normal(0.1), p_rel and skip gates ones, embeddings
+    and learned tokens standard normal, the decoder U(-1/sqrt(D),
+    1/sqrt(D)). Streams differ from JAX's."""
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
             if isinstance(mod, BilinearDDIScorer):
@@ -319,6 +370,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif name.startswith(("k_rel__", "v_rel__")):
                 bound = math.sqrt(6.0 / (p.shape[1] + p.shape[2]))
                 p.uniform_(-bound, bound, generator=generator)
+            elif name == "att" or name.startswith(
+                    ("att_src__", "att_dst__", "bases_", "coeffs_")):
+                _glorot_uniform_(p, generator)
+            elif name == "sem_q":
+                p.normal_(0.0, 0.1, generator=generator)
             elif name == "bias":
                 p.zero_()
             elif name == "eps":

@@ -6,7 +6,11 @@ With `cfg.remat` the whole fusion call is recomputed in the backward, so
 only its embed-width inputs are kept between the forward and the backward
 (as the JAX encoder wraps `TransformerFusion` in `nn.remat`), and inside
 that recompute each transformer layer is rematerialized under
-`cfg.remat_policy` (`models/attention.py`).
+`cfg.remat_policy` (`models/attention.py`). `cfg.compute_dtype`
+('bfloat16': the JAX package's throughput mode) runs the transformer's
+and the pooling attention's projections and feed-forward matmuls in that
+type (`models/attention.py`); embed2latent, latent2embed, the LayerNorms
+and the residual stream stay float32.
 """
 from __future__ import annotations
 
@@ -66,10 +70,6 @@ class TransformerFusion(nn.Module):
     def __init__(self, cfg: FusionConfig, embed_dim: int, num_kv_tokens: int,
                  num_non_tx: int):
         super().__init__()
-        if cfg.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"transformer.compute_dtype={cfg.compute_dtype!r}: the bf16 "
-                "fusion path is not ported yet (ROADMAP)")
         if cfg.agg not in ("x-attn", "cls", "mean", "max"):
             raise NotImplementedError(cfg.agg)
         self.cfg = cfg
@@ -78,13 +78,14 @@ class TransformerFusion(nn.Module):
         self.transformer_encoder = TransformerEncoder(
             cfg.num_layers, latent, cfg.att_heads, cfg.ffn_dim, cfg.dropout,
             cfg.actn, cfg.norm_first, remat=cfg.remat,
-            remat_policy=cfg.remat_policy)
+            remat_policy=cfg.remat_policy, compute_dtype=cfg.compute_dtype)
         if cfg.agg == "x-attn":
             self.x_attn_query = nn.Parameter(torch.empty(1, latent))
             self.x_attn_kv_norm = nn.LayerNorm(latent, eps=1e-5)
             self.x_attn_query_norm = nn.LayerNorm(latent, eps=1e-5)
             self.x_attn_mha = MultiheadAttention(latent, cfg.att_heads,
-                                                 cfg.dropout)
+                                                 cfg.dropout,
+                                                 cfg.compute_dtype)
             # with bottlenecks the pooling query reads only them
             kpm = torch.zeros(num_kv_tokens, dtype=torch.bool)
             if cfg.num_tx_bottlenecks > 0:

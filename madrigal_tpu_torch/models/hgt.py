@@ -22,6 +22,12 @@ K2 (`ops/gather.py`). With `remat_edge_types` (per_edge_type scope only,
 as in the JAX package) each edge type's messages are recomputed in the
 backward, so only its [N_dst, F] aggregate is kept, not its [E, ...]
 edge buffers.
+
+With `compute_dtype='bfloat16'` (hgt.py:87-97, 124-176) the relation
+transforms, the fused k|v gather, the logits product and the weighted
+messages run in bf16; the head-logit sums, the segment softmax and the
+output accumulation stay float32. The gather's backward then hands K2
+bf16 rows. With 'float32' no cast is inserted.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from ..config import HGTConfig
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
 from ..ops.gather import gather_rows_sorted
 from ..ops.segment import segment_softmax, segment_sum
+from .attention import reduced_dtype
 from .remat import remat
 
 
@@ -54,6 +61,18 @@ def _src_gather(table: torch.Tensor, g: HeteroKGBatch, ek: str,
     return table[g.edge_src[ek].long()]
 
 
+def _casters(compute_dtype):
+    """(cast, up) of the reduced-precision edge pipeline (port of
+    hgt.py:87-97): None or 'float32' inserts no casts at all, so the
+    float32 path is unchanged; 'bfloat16' (or 'float16') casts the edge
+    streams down and `up` restores float32 for the softmax statistics and
+    the accumulation."""
+    dtype = reduced_dtype(compute_dtype)
+    if dtype is None:
+        return (lambda x: x), (lambda x: x)
+    return (lambda x: x.to(dtype)), (lambda x: x.float())
+
+
 def _relation_transform(x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
     """[N, H*D] @ per-head [H, D, D] -> [N, H*D]."""
     H, D, _ = rel.shape
@@ -65,8 +84,10 @@ class HGTConv(nn.Module):
     def __init__(self, in_dims: Dict[str, int], edge_types: Sequence[EdgeType],
                  out_channels: int, heads: int, group: str = "sum",
                  softmax_scope: str = "per_edge_type",
-                 src_sorted_bwd: bool = True, remat_edge_types: bool = False):
+                 src_sorted_bwd: bool = True, remat_edge_types: bool = False,
+                 compute_dtype: str | None = "float32"):
         super().__init__()
+        self.cast, self.up = _casters(compute_dtype)
         self.src_sorted_bwd = src_sorted_bwd
         self.remat_edge_types = remat_edge_types
         F_ = out_channels
@@ -107,26 +128,30 @@ class HGTConv(nn.Module):
                             k: Dict[str, torch.Tensor],
                             v: Dict[str, torch.Tensor]
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One edge type's per-edge logits [E, H] and values [E, F]."""
+        """One edge type's per-edge logits [E, H] (float32) and values
+        [E, F] (the compute type)."""
         src_t, _, dst_t = et
         ek = edge_key(et)
+        cast = self.cast
         dst = g.edge_dst[ek].long()
-        k_s = _relation_transform(k[src_t], getattr(self, f"k_rel__{ek}"))
-        v_s = _relation_transform(v[src_t], getattr(self, f"v_rel__{ek}"))
+        k_s = _relation_transform(cast(k[src_t]),
+                                  cast(getattr(self, f"k_rel__{ek}")))
+        v_s = _relation_transform(cast(v[src_t]),
+                                  cast(getattr(self, f"v_rel__{ek}")))
         # one gather of the fused k|v table (a gather of a concatenation
         # is the concatenation of the gathers)
         kv = _src_gather(torch.cat([k_s, v_s], dim=-1), g, ek,
                          self.src_sorted_bwd)  # [E, 2F]
-        prod = q[dst_t][dst] * kv[:, :self.F]  # [E, F]
-        logits = (prod.reshape(-1, self.H, self.D).sum(-1)
+        prod = cast(q[dst_t])[dst] * kv[:, :self.F]  # [E, F]
+        logits = (self.up(prod).reshape(-1, self.H, self.D).sum(-1)
                   * getattr(self, f"p_rel__{ek}")[None, :]
                   / math.sqrt(self.D))
         return logits, kv[:, self.F:]
 
     def _aggregate(self, logits, vals, dst, mask, n_dst):
         alpha = segment_softmax(logits, dst, n_dst, mask=mask)  # [E, H]
-        msg = vals * alpha.repeat_interleave(self.D, dim=-1)
-        return segment_sum(msg, dst, n_dst)
+        msg = vals * self.cast(alpha).repeat_interleave(self.D, dim=-1)
+        return segment_sum(self.up(msg), dst, n_dst)
 
     def forward(self, g: HeteroKGBatch, x_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -201,10 +226,6 @@ class HGTEncoder(nn.Module):
                  node_dims: Dict[str, int], edge_types: Sequence[EdgeType],
                  drug_only_head: bool = False):
         super().__init__()
-        if cfg.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"hgt.compute_dtype={cfg.compute_dtype!r}: the reduced-"
-                "precision edge pipeline is not ported yet (ROADMAP)")
         if cfg.shard_axis is not None:
             raise NotImplementedError(
                 "hgt.shard_axis: graph-parallel HGT belongs to the "
@@ -215,7 +236,8 @@ class HGTEncoder(nn.Module):
             conv = HGTConv(dims, edge_types, cfg.hidden_dim, cfg.att_heads,
                            group=cfg.group, softmax_scope=cfg.softmax_scope,
                            src_sorted_bwd=cfg.src_sorted_bwd,
-                           remat_edge_types=cfg.remat_edge_types)
+                           remat_edge_types=cfg.remat_edge_types,
+                           compute_dtype=cfg.compute_dtype)
             self.add_module(f"conv_{i}", conv)
             dims = conv.out_dims
         self.head_types = (("drug",) if drug_only_head

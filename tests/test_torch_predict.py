@@ -489,7 +489,9 @@ def test_port_imports_no_jax_pandas_or_reference_package():
               "cli.pretrain", "models.simclr", "train.pretrain_cl",
               "train.pretrain_masks", "data.pipeline", "eval.evaluate_pt",
               "eval.cl_metrics", "eval.geomca", "cli.modality_pretrain",
-              "train.modality_pretrain", "train.transfer"):
+              "train.modality_pretrain", "train.transfer", "models.gat",
+              "models.kg_alt", "models.vae", "data.kg_sampling",
+              "interop.convert_checkpoint", "interop.torch_convert"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 

@@ -407,14 +407,16 @@ def test_cli_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--set", "model.encoder.str_encoder=gat"],
-    ["--set", "model.encoder.kg_encoder=rgcn"],
-    ["--set", "model.encoder.kg_encoder=han"], ["--set", "loss_fn_name=ce"],
+    ["--set", "model.encoder.hgt.shard_axis=kg"],
+    ["--set", "model.encoder.str_encoder=gcn"],
+    ["--set", "model.encoder.kg_encoder=gnn"], ["--set", "loss_fn_name=ce"],
     ["--platform", "tpu"],
-    ["--all_train", "--set", "model.encoder.kg_encoder=rgcn"]])
+    ["--all_train", "--set", "model.encoder.hgt.shard_axis=kg"]])
 def test_unported_training_flags_raise(tmp_path, extra):
-    """What the port does not run yet (the GAT, RGCN and HAN encoders, the
-    cross-entropy loss, ROADMAP) raises before anything is written."""
+    """What the port does not run (the graph-parallel HGT of the multi-GPU
+    port, ROADMAP; encoders that neither package builds; the cross-entropy
+    loss; the JAX package's platform) raises before anything is written.
+    The GAT, HAN and RGCN encoders train: tests/test_torch_alt_encoders.py."""
     argv = CLI + ["--num_epochs", "3", "--save_dir", str(tmp_path)] + extra
     with pytest.raises(NotImplementedError):
         t_cli.main(argv)
