@@ -91,6 +91,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
      against the plain version, the scores against the plain sigmoid
      mean, the ranks against numpy's gmean re-rank of each seed's numpy
      ranks, and the seed files gone;
+  7a. analyze: the analysis CLI (`madrigal_tpu_torch.cli.analyze`) over
+     that phase's exported ranks (mmap): the self-combo diagonal, pairs,
+     a gmean aggregate's top-k with a known mask, an enrichment, a binary
+     validation and its cross-validated AUROC, against numpy on the same
+     mmap, with no scikit-learn, pandas or pyyaml loaded;
   8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
      masks, under AdamW (with the Evaluator's val metrics after them),
@@ -108,10 +113,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
      adaptation with its adversaries (the double backward of the
      gradient penalty, the alternating steps) and the frozen drug table;
      and the card's HGT gradients through K2 against the plain backward's;
+ 10a. chemcpa_sweep: the sweep CLI (`madrigal_tpu_torch.cli.chemcpa_sweep`)
+     on a JSON file of two configs at the flagship chemCPA widths, on the
+     tx rows of SWEEP_DRUGS drugs: each config's best R2, the best
+     checkpoint onto the flagship encoder, and the card's memory after
+     the second config's cleanup against the first's;
  11. training: the training CLI at the flagship configuration on the
      reference scale / SYNTHETIC_TRAIN_SHRINK for 3 epochs with one
      evaluation sweep and the test pass, with every kernel's launch count
      set to 0 just before it and read just after;
+ 11x. lm_decoder: the LM-head CLI (`madrigal_tpu_torch.cli.train_lm`) at
+     full width on phase 5's checkpoint and embeddings, with a seeded
+     paraphrase bank at Mistral-7B's width, LM_EPOCHS epochs; the drug
+     table against those embeddings, the loss falling, the saved head on
+     the CPU against the card;
+ 11a. profile: `utils.profiling.trace` (torch.profiler) around one K1
+     call at the serving shape and one training step at phase 11's
+     shapes: each trace names its kernel's symbol; the top device
+     operations and the device's busy share of each; StepTimer over
+     PROFILE_STEPS steps; memory_stats();
  12. stage1: the stage-1 CLI at the flagship encoder's widths: kg at the
      full reference scale (seed 0) for STAGE1_KG_EPOCHS full-graph steps
      (K2 at the link split's message-edge shapes, launches a step; the
@@ -129,6 +149,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
      set to 0 before, read after; K2 at this run's shapes, launches a
      step; each step's seconds, the peak device memory), its checkpoints
      checked;
+ 13a. pretrain_embeds: `analysis.pretrain_embeds.pretrain_embedding_shift`
+     between the encoder phase 13 started from and its `cl_last`, for
+     EMBED_DRUGS drugs, and EMBED_DRUGS_VS_CPU drugs' rows against the CPU;
  14. pretrain_final_embeds: the stage-2 CLI with --host_collate and
      --final_embeds_eval at the reference scale / FINAL_EMBEDS_SHRINK
      for FINAL_EMBEDS_STEPS steps (counts set to 0 before, read after);
@@ -150,8 +173,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 Standard output: one JSON line per phase, a line of each phase's wall
 seconds (with the stage-2 phases' sum, the stage-1 phases' sum, the
-sum of phases 6a-6d and `main` against STAGE2_BUDGET_S, STAGE1_BUDGET_S,
-ALT_BUDGET_S and MAIN_BUDGET_S), the
+sum of phases 6a-6d, the sum of phases 7a, 10a, 11x, 11a and 13a, and
+`main` against STAGE2_BUDGET_S, STAGE1_BUDGET_S, ALT_BUDGET_S,
+AUX_BUDGET_S and MAIN_BUDGET_S), the
 `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
 writes only under `build/` in the checkout and imports no JAX.
@@ -184,12 +208,22 @@ work. It prints no ok line.
 builds both kernels, the reference-scale dataset, and runs phases 6a-6d
 only: the quick loop for the alternative encoders, the bf16 modes and
 the reference's checkpoints. It prints no ok line.
+
+    python3 chip_smoke.py --aux
+
+builds both kernels and runs phases 7a, 10a, 11x, 11a and 13a only, on
+what `aux_setup` makes at the sizes `main` gives them (a flagship
+checkpoint and its embeddings, a seeded rank tensor of the ensemble's
+shape, two seeded flagship encoders): the quick loop for the sweep, the
+LM head, analysis and profiling. It prints no ok line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import inspect
+import io
 import json
 import logging
 import shutil
@@ -323,7 +357,24 @@ BF16_LOSS_RTOL = 2.0 ** -8
 # the reference's checkpoints together (alt_small, alt_encoders,
 # bf16_train, reference_ckpt), and main
 STAGE2_BUDGET_S, STAGE1_BUDGET_S, ALT_BUDGET_S = 60.0, 60.0, 45.0
-MAIN_BUDGET_S = 400.0
+# the chemCPA sweep: its drugs (the reference's 6,843 / 8, as stage 1's
+# tx run), the autoencoder rates of its two configs, its epochs, and how
+# many bytes more the card may hold after the second config's cleanup
+# than after the first's; the LM head: its paraphrase bank's variants and
+# width (Mistral-7B's), epochs, batch, and the eval rows held to the CPU;
+# analyze: the outcomes aggregated, the outcomes the cross-validated AUROC
+# takes, and the top-k; pretrain_embeds: the drugs, and those held to the
+# CPU; profile: the steps StepTimer times, and the device operations each
+# trace lists; the wall-time budget of these five phases together
+SWEEP_DRUGS, SWEEP_RATES, SWEEP_EPOCHS = 6843 // 8, (1e-3, 3e-4), 3
+SWEEP_MEM_SLACK = 64 << 20
+LM_VARIANTS, LM_DIM, LM_EPOCHS, LM_BATCH, LM_ROWS_VS_CPU = (
+    10, 4096, 2, 512, 256)
+ANALYZE_AGG_LABELS, ANALYZE_CV_LABELS, ANALYZE_TOPK = 3, 8, 20
+EMBED_DRUGS, EMBED_DRUGS_VS_CPU = 10, 2
+PROFILE_STEPS, TOP_DEVICE_OPS = 3, 10
+AUX_BUDGET_S = 45.0
+MAIN_BUDGET_S = 445.0
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -838,8 +889,8 @@ def phase_serving(seed: int = 0):
           "main_path_s": t_main,
           "phase_s": phase_s, "bf16_export": bf16_export,
           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    shutil.rmtree(WORK)
-    return counts, model, z, ds
+    # the checkpoint and the embeddings stay for the lm_decoder phase
+    return counts, model, z, ds, ckpt, emb
 
 
 def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
@@ -1098,8 +1149,8 @@ def phase_predict_ensemble() -> dict:
           "scores_max_abs_err_vs_plain": score_err,
           "triple_probs": probs.tolist(), "triple_max_abs_err": triple_err,
           "reference_s": time.perf_counter() - t0})
-    shutil.rmtree(work)
-    return counts
+    # the directory stays for the analyze phase, which reads the ranks
+    return counts, Path(out["ranks"])
 
 
 # ------------------------------------------------------------ training
@@ -1737,7 +1788,8 @@ def run_pretrain(argv, shrink: int, path: str):
     read just after, each step timed to the end of its work on the card;
     K2 held to the launches a step needs and to the shapes
     phase_k2_kernels checked. Returns (the CLI's result, counts, step
-    seconds, CLI seconds, peak device GB, checkpoint save seconds)."""
+    seconds, CLI seconds, peak device GB, checkpoint save seconds, the
+    dataset the CLI built)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with Recorder() as rec:
@@ -1762,7 +1814,7 @@ def run_pretrain(argv, shrink: int, path: str):
     require(all(np.isfinite(res["losses"])),
             f"{path}: losses {res['losses']}")
     return (res, counts, rec.seconds["_run_step"], t_cli, peak,
-            rec.seconds["save_checkpoint"])
+            rec.seconds["save_checkpoint"], ds)
 
 
 def check_stage1_overlay(start: dict, stage1_paths: dict) -> dict:
@@ -1786,7 +1838,9 @@ def phase_pretrain(stage1_paths: dict = None):
     without): the CLI for PRETRAIN_STEPS steps with a checkpoint every
     PRETRAIN_SAVE_EVERY; the encoder before the first step against the
     stage-1 tensors; the checkpoints' names, steps and contents. Returns
-    (counts, the cl_last path); the data_dir phase warm-starts from it."""
+    (counts, the cl_last path, the encoder's state_dict before the first
+    step, the dataset): the data_dir phase warm-starts from cl_last, and
+    pretrain_embeds compares the encoder before and after."""
     save_dir = WORK / "pretrain"
     if save_dir.exists():
         shutil.rmtree(save_dir)
@@ -1799,7 +1853,7 @@ def phase_pretrain(stage1_paths: dict = None):
 
     pretrain_cl.CLPretrainer.__init__ = snapshot
     try:
-        res, counts, step_s, t_cli, peak, save_s = run_pretrain(
+        res, counts, step_s, t_cli, peak, save_s, ds = run_pretrain(
             pretrain_argv(save_dir, PRETRAIN_STEPS, extra=(
                 "--save_checkpoints", str(PRETRAIN_SAVE_EVERY),
                 *(["--modality_ckpts", *stage1_paths.values()]
@@ -1836,7 +1890,7 @@ def phase_pretrain(stage1_paths: dict = None):
           "checkpoint_save_s": save_s, "data_build_s": res["data_seconds"],
           "cli_s": t_cli, "peak_device_mem_gb": peak,
           "stage1_tensors_overlaid": overlay})
-    return counts, res["checkpoint"]
+    return counts, res["checkpoint"], starts[0], ds
 
 
 def phase_pretrain_final_embeds():
@@ -1850,7 +1904,7 @@ def phase_pretrain_final_embeds():
     save_dir = WORK / "pretrain_final"
     if save_dir.exists():
         shutil.rmtree(save_dir)
-    res, counts, step_s, t_cli, peak, _ = run_pretrain(
+    res, counts, step_s, t_cli, peak, _, _ = run_pretrain(
         pretrain_argv(save_dir, FINAL_EMBEDS_STEPS,
                       shrink=FINAL_EMBEDS_SHRINK,
                       extra=("--host_collate", "--final_embeds_eval")),
@@ -2685,6 +2739,498 @@ def phase_reference_ckpt(ds):
     return counts
 
 
+# ------------------------ the sweep, the LM head, analysis and profiling
+def phase_chemcpa_sweep():
+    """The sweep CLI on a JSON file this phase writes: two configs at the
+    flagship chemCPA widths (978 genes, 128-d latent, a 512x2
+    autoencoder) that differ in the autoencoder's rate, on the tx rows of
+    `--synthetic --synthetic_drugs SWEEP_DRUGS` (the reference's drugs /
+    8, as stage 1's tx run), SWEEP_EPOCHS epochs with R2 after each: one
+    summary line a config with a finite best R2; the best checkpoint
+    overlays onto the flagship encoder's tx module exactly; the card's
+    allocated memory after the second config's cleanup within
+    SWEEP_MEM_SLACK bytes of its value after the first."""
+    from madrigal_tpu_torch.cli import chemcpa_sweep as cli_sweep
+    from madrigal_tpu_torch.data import synthetic
+    from madrigal_tpu_torch.train.transfer import overlay_stage1_checkpoint
+
+    work = WORK / "sweep"
+    work.mkdir(parents=True, exist_ok=True)
+    chem = flagship_config(NUM_LABELS).model.encoder.chemcpa
+    spec = work / "sweep.json"
+    spec.write_text(json.dumps({
+        "fixed": {"training.num_epochs": SWEEP_EPOCHS,
+                  "training.checkpoint_freq": 1,
+                  "model.hparams.dim": chem.dim,
+                  "model.hparams.autoencoder_width": chem.autoencoder_width,
+                  "model.hparams.autoencoder_depth": chem.autoencoder_depth,
+                  "model.use_drugs": False},
+        "grid": {"model.hparams.autoencoder_lr": {
+            "type": "choice", "options": list(SWEEP_RATES)}}}))
+    # the allocated bytes after each config's cleanup (the sweep calls
+    # torch.cuda.empty_cache once a config)
+    after, empty_cache = [], torch.cuda.empty_cache
+
+    def record():
+        empty_cache()
+        after.append(torch.cuda.memory_allocated())
+
+    torch.cuda.empty_cache = record
+    try:
+        with Recorder() as rec:
+            rec.wrap(synthetic, "make_dataset", keep=True)
+            reset_launches()  # counts start here
+            t0 = time.perf_counter()
+            res = cli_sweep.main([
+                "--platform", "cuda", "--synthetic", "--synthetic_drugs",
+                str(SWEEP_DRUGS), "--seed", "0", "--sweep_yaml", str(spec),
+                "--save_dir", str(work)])
+            t_cli = time.perf_counter() - t0
+            counts = read_launches()  # counts end here
+    finally:
+        torch.cuda.empty_cache = empty_cache
+    with open(work / "sweep_results.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    summaries = [line["summary"] for line in lines if "summary" in line]
+    evals = [line for line in lines if "test_r2" in line]
+    require(len(summaries) == len(res["results"]) == len(SWEEP_RATES)
+            and all(np.isfinite(s["best_r2"]) for s in summaries)
+            and len(evals) == len(SWEEP_RATES) * (SWEEP_EPOCHS - 1),
+            f"chemcpa_sweep: summaries {summaries}, {len(evals)} evals")
+    require(len(after) == len(SWEEP_RATES)
+            and abs(after[1] - after[0]) <= SWEEP_MEM_SLACK,
+            f"chemcpa_sweep: allocated bytes after each config {after}")
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+            f"chemcpa_sweep: launches {counts}")
+    # the best encoder onto the flagship encoder
+    sd, cfg = load_checkpoint(res["checkpoint"])
+    ds = rec.results["make_dataset"][0]
+    enc = MadrigalEncoder(flagship_config(NUM_LABELS).model.encoder,
+                          *kg_schema(ds.kg_node_feats, ds.kg_edge_indices))
+    tx = [k for k in enc.state_dict() if k.startswith("tx_encoder.")]
+    merged = overlay_stage1_checkpoint(enc.state_dict(), sd)
+    require(isinstance(cfg, C.ChemCPAConfig) and tx
+            and all(k in sd and torch.equal(merged[k], sd[k]) for k in tx),
+            "chemcpa_sweep: the best checkpoint does not overlay onto the "
+            "flagship encoder's tx module")
+    emit({"phase": "chemcpa_sweep", "drugs": SWEEP_DRUGS,
+          "genes": ds.tx_table.shape[2],
+          "configs": len(summaries), "epochs": SWEEP_EPOCHS,
+          "widths": {"dim": chem.dim, "width": chem.autoencoder_width,
+                     "depth": chem.autoencoder_depth},
+          "best_r2": [s["best_r2"] for s in summaries],
+          "stop_reasons": [s["stop_reason"] for s in summaries],
+          "best_index": res["best_index"], "tensors_overlaid": len(tx),
+          "allocated_bytes_after_config": after, "launches": counts,
+          "cli_s": t_cli})
+    shutil.rmtree(work)
+    return counts
+
+
+def phase_lm_decoder(ckpt: str, z_path: str):
+    """The LM-head CLI at full width: --synthetic_scale, the drug table
+    from the serving phase's checkpoint (`--checkpoint`), a seeded
+    paraphrase bank [LM_VARIANTS, 960, LM_DIM] (Mistral-7B's width) as
+    `--text_embeddings`, project 256, MLP 512, self-attention,
+    LM_EPOCHS epochs of batch LM_BATCH: the drug table equals the serving
+    phase's exported embeddings within 1e-5; the loss is finite and falls
+    from the first epoch to the second; the zero-shot metrics are finite;
+    the saved head reloads on the CPU and scores LM_ROWS_VS_CPU eval rows
+    within 1e-5 of the trainer on the card."""
+    from madrigal_tpu_torch.cli import train_lm as cli_lm
+    from madrigal_tpu_torch.models.lm_decoder import LMDecoder
+    from madrigal_tpu_torch.train import lm_decoder as lm_lib
+    from madrigal_tpu_torch.train.lm_decoder import LMDecoderTrainer
+
+    work = WORK / "lm"
+    work.mkdir(parents=True, exist_ok=True)
+    bank = work / "bank.npy"
+    np.save(bank, np.random.default_rng(0).standard_normal(
+        (LM_VARIANTS, NUM_LABELS, LM_DIM), dtype=np.float32))
+    with Recorder() as rec:
+        rec.wrap(cli_common, "load_data")
+        rec.wrap(lm_lib, "build_lm_table")
+        rec.wrap(cli_lm, "_drug_table")
+        rec.wrap(cli_lm, "_text_table")
+        rec.wrap(LMDecoderTrainer, "__init__", sync=True)
+        rec.wrap(LMDecoderTrainer, "train_epoch", sync=True)
+        rec.wrap(LMDecoderTrainer, "evaluate", sync=True)
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        res = cli_lm.main([
+            "--platform", "cuda", "--synthetic_scale", "--seed", "0",
+            "--checkpoint", ckpt, "--text_embeddings", str(bank),
+            "--project_dim", "256", "--mlp_dim", "512",
+            "--num_epochs", str(LM_EPOCHS), "--batch_size", str(LM_BATCH),
+            "--save_dir", str(work)])
+        t_cli = time.perf_counter() - t0
+        counts = read_launches()  # counts end here
+    z = np.load(z_path)
+    z_err = float(np.abs(res["drug_table"] - z).max())
+    require(res["drug_table"].shape == z.shape and z_err <= 1e-5,
+            f"lm_decoder: the drug table differs from the serving phase's "
+            f"embeddings by {z_err}")
+    losses = res["losses"]
+    require(len(losses) == LM_EPOCHS and np.isfinite(losses).all()
+            and losses[1] < losses[0], f"lm_decoder: losses {losses}")
+    keys = ("auroc", "auprc", "fmax", "accuracy")
+    require(all(np.isfinite(m[k]) for m in res["metrics"] for k in keys),
+            f"lm_decoder: zero-shot metrics {res['metrics']}")
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+            f"lm_decoder: launches {counts}")
+    # the saved head on the CPU against the trainer on the card
+    sd = torch.load(Path(res["path"]) / "lm_decoder.pt", weights_only=True)
+    head = LMDecoder.from_state_dict(sd)
+    rows = {k: v[:LM_ROWS_VS_CPU] for k, v in res["eval_table"].items()}
+    card = res["trainer"].predict(rows)
+    text = np.load(bank, mmap_mode="r")[0]  # predict's variant
+    drug = torch.from_numpy(res["drug_table"])
+    with torch.no_grad():
+        cpu = torch.sigmoid(head(
+            drug[rows["head"]], drug[rows["tail"]],
+            torch.from_numpy(np.ascontiguousarray(text[rows["label"]])))
+        ).numpy()
+    cpu_err = float(np.abs(card - cpu).max())
+    require(cpu_err <= 1e-5,
+            f"lm_decoder: the reloaded head on the CPU differs from the "
+            f"card by {cpu_err}")
+    meta = json.loads((Path(res["path"]) / "lm_meta.json").read_text())
+    emit({"phase": "lm_decoder", "drugs": NUM_DRUGS, "outcomes": NUM_LABELS,
+          "bank": [LM_VARIANTS, NUM_LABELS, LM_DIM],
+          "zero_shot_outcomes": len(meta["eval_labels"]),
+          "eval_rows": len(res["eval_table"]["head"]), "epochs": LM_EPOCHS,
+          "batch": LM_BATCH, "losses": losses,
+          "zero_shot": [{k: m[k] for k in keys} for m in res["metrics"]],
+          "drug_table_max_abs_err": z_err, "cpu_max_abs_err": cpu_err,
+          "launches": counts, "data_s": rec.seconds["load_data"],
+          "tables_s": rec.seconds["build_lm_table"],
+          "drug_table_s": rec.seconds["_drug_table"],
+          "text_table_s": rec.seconds["_text_table"],
+          "trainer_init_s": rec.seconds["__init__"],
+          "epoch_s": rec.seconds["train_epoch"],
+          "evaluate_s": rec.seconds["evaluate"], "cli_s": t_cli})
+    del res
+    shutil.rmtree(work)
+    for path in (ckpt, z_path):
+        Path(path).unlink()
+    return counts
+
+
+def write_pairs(path: Path, rows) -> str:
+    np.savetxt(path, np.asarray(rows), fmt="%d")
+    return str(path)
+
+
+def phase_analyze(ranks: Path):
+    """The analysis CLI over a [L, N, N] float32 rank tensor (mmap): the
+    self-combo diagonal, pair lookups, the gmean of ANALYZE_AGG_LABELS
+    outcomes with its top ANALYZE_TOPK novel pairs (a known-pair mask
+    excluded), an enrichment of candidate pairs, and a binary external
+    validation, alone and as the cross-validated AUROC over
+    ANALYZE_CV_LABELS outcomes. Its standard output is captured, so that
+    each line this script prints stays one JSON object. The diagonal and
+    the top-k values against numpy on the same mmap, exactly; no
+    scikit-learn, pandas or pyyaml loaded."""
+    from madrigal_tpu_torch.cli import analyze as cli_analyze
+
+    work = ranks.parent / "analyze"
+    work.mkdir(parents=True, exist_ok=True)
+    t = np.load(ranks, mmap_mode="r")
+    L, n, _ = t.shape
+    rng = np.random.RandomState(0)
+    labels = sorted(rng.choice(L, ANALYZE_CV_LABELS, replace=False).tolist())
+    agg = labels[:ANALYZE_AGG_LABELS]
+    known = rng.rand(n, n) < 0.01
+    np.save(work / "known.npy", known)
+    cand = write_pairs(work / "cand.csv", rng.randint(0, n, (50, 2)))
+    val_pairs = rng.randint(0, n, (200, 2))
+    val = write_pairs(work / "val.csv", np.column_stack(
+        [val_pairs, rng.rand(200) < 0.3]))
+    pairs = ["0:1", f"7:{n - 1}", f"{n // 2}:3"]
+    label_list = ",".join(map(str, labels))
+    runs = {
+        "self_combo": ["--self_combo", str(work / "sc.npy")],
+        "pairs": ["--pairs", *pairs, "--labels", label_list],
+        "aggregate_topk": ["--aggregate", "gmean", "--labels",
+                           ",".join(map(str, agg)), "--out",
+                           str(work / "agg.npy"), "--topk",
+                           str(ANALYZE_TOPK), "--known",
+                           str(work / "known.npy")],
+        "enrich": ["--label", str(labels[0]), "--enrich", cand],
+        "validate": ["--label", str(labels[0]), "--validate", val],
+        "cv_auroc": ["--labels", label_list, "--cv_auroc", "--validate",
+                     val],
+    }
+    out, seconds = {}, {}
+    reset_launches()  # counts start here
+    for name, args in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_analyze.main(["--tensor", str(ranks), *args])
+        seconds[name] = time.perf_counter() - t0
+        out[name] = json.loads(buf.getvalue())
+    counts = read_launches()  # counts end here
+    # numpy on the same mmap
+    diag = np.stack([np.diagonal(t[l]) for l in range(L)])
+    require(np.array_equal(np.load(work / "sc.npy"), diag),
+            "analyze: the self-combo diagonal differs from numpy's")
+    want = [[float(t[l][int(a), int(b)]) for a, b in
+             (p.split(":") for p in pairs)] for l in labels]
+    require(out["pairs"]["pairs"]["values"] == want,
+            "analyze: the pair values differ from numpy's")
+    acc = np.zeros((n, n))
+    with np.errstate(divide="ignore"):
+        for l in agg:
+            acc += np.log(np.asarray(t[l], np.float64))
+    gm = np.exp(acc / len(agg))
+    valid = np.tri(n, k=-1, dtype=bool) & ~(known | known.T)
+    top = np.sort(gm[valid])[::-1][:ANALYZE_TOPK]
+    got = out["aggregate_topk"]["topk"]
+    require(got["values"] == top.tolist()
+            and all(valid[a, b] and gm[a, b] == v
+                    for (a, b), v in zip(got["pairs"], got["values"])),
+            "analyze: the top-k pairs differ from numpy's")
+    require(np.isfinite(out["enrich"]["enrichment"]["pvalue"])
+            and out["validate"]["validation"]["kind"] == "binary"
+            and np.isfinite(out["validate"]["validation"]["auroc"])
+            and 0 <= out["cv_auroc"]["cv_auroc"]["auroc"] <= 1
+            and out["cv_auroc"]["cv_auroc"]["labels"] == labels,
+            f"analyze: {out['enrich']}, {out['validate']}, "
+            f"{out['cv_auroc']}")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("sklearn", "pandas", "yaml"))
+    require(not loaded, f"analyze: loaded {loaded}")
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+            f"analyze: launches {counts}")
+    emit({"phase": "analyze", "tensor": [L, n, n],
+          "labels": labels, "topk_values": got["values"][:3],
+          "enrichment_pvalue": out["enrich"]["enrichment"]["pvalue"],
+          "validation_auroc": out["validate"]["validation"]["auroc"],
+          "cv_auroc": out["cv_auroc"]["cv_auroc"], "launches": counts,
+          "query_s": seconds})
+    shutil.rmtree(work)
+    return counts
+
+
+def phase_pretrain_embeds(enc_cfg, ds, before: dict, after: dict):
+    """`analysis.pretrain_embeds.pretrain_embedding_shift` of the encoder
+    `enc_cfg` on `ds` (full scale) between two state_dicts, for
+    EMBED_DRUGS full-modality drugs with PCA: the alignments and
+    coordinates finite; EMBED_DRUGS_VS_CPU drugs' rows under `after`
+    against the same encoder on the CPU within 1e-5 of their largest
+    entry (the CPU takes the card's KG drug table: the full-scale HGT
+    pass alone on the CPU would take most of the phase's budget, and the
+    reference_ckpt phase holds it to the CPU)."""
+    from madrigal_tpu_torch.analysis import pretrain_embeds as pe
+    from madrigal_tpu_torch.eval.evaluate_pt import (
+        DEFAULT_EVAL_MODALITY_INDICES,
+        encode_single_modality,
+        kg_table,
+    )
+
+    coll = DDICollator(ds, split="train", seed=0, device="cuda")
+    kg = coll.kg_batch()
+    enc = MadrigalEncoder(enc_cfg, *kg_schema(ds.kg_node_feats,
+                                              ds.kg_edge_indices)).cuda()
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    res = pe.pretrain_embedding_shift(enc, before, after, coll, kg,
+                                      n_drugs=EMBED_DRUGS, method="pca")
+    t_shift = time.perf_counter() - t0
+    counts = read_launches()  # counts end here
+    align = res["alignment"]
+    require(len(res["drugs"]) == EMBED_DRUGS
+            and all(np.isfinite(v) for v in align.values())
+            and np.isfinite(res["coords_before"]).all()
+            and np.isfinite(res["coords_after"]).all()
+            and res["projection"] == "pca",
+            f"pretrain_embeds: alignment {align}, {len(res['drugs'])} "
+            "drugs")
+    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+            f"pretrain_embeds: launches {counts}")
+    drugs = res["drugs"][:EMBED_DRUGS_VS_CPU]
+    table = kg_table(enc, kg)
+    cpu_enc = copy.deepcopy(enc).cpu()
+    cpu_coll = DDICollator(ds, split="train", seed=0, device="cpu")
+    err, scale = 0.0, 0.0
+    for mi in DEFAULT_EVAL_MODALITY_INDICES:
+        zg, vg = encode_single_modality(enc, coll, kg, drugs, mi,
+                                        kg_drug_table=table)
+        zc, vc = encode_single_modality(cpu_enc, cpu_coll, None, drugs, mi,
+                                        kg_drug_table=table.cpu())
+        require(np.array_equal(vg, vc), "pretrain_embeds: valid drugs")
+        if len(vc):
+            err = max(err, float(np.abs(zg - zc).max()))
+            scale = max(scale, float(np.abs(zc).max()))
+    require(err <= 1e-5 * scale,
+            f"pretrain_embeds: the card's rows differ from the CPU's by "
+            f"{err} (largest {scale})")
+    emit({"phase": "pretrain_embeds", "drugs": [int(d) for d in
+                                                res["drugs"]],
+          "rows": int(len(res["modality"])), "alignment": align,
+          "rows_vs_cpu_max_abs_err": err, "rows_vs_cpu_largest": scale,
+          "launches": counts, "shift_s": t_shift})
+    return counts
+
+
+def trace_summary(log_dir: Path, symbols) -> dict:
+    """From the Chrome trace in `log_dir`: the window (first to last
+    event), the device's busy time in it (the union of its kernels,
+    copies and sets), the TOP_DEVICE_OPS device operations with the most
+    time, and the time of the kernels whose names hold each of
+    `symbols`."""
+    (path,) = sorted(log_dir.glob("trace_*.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, -np.inf
+    for s, d in sorted((e["ts"], e["dur"]) for e in dev):
+        if s + d > end:
+            busy += s + d - max(s, end)
+            end = s + d
+    by_name = {}
+    for e in dev:
+        us, k = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + e["dur"], k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_DEVICE_OPS]
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0), "device_ops": len(dev),
+            "top": [{"name": name[:120], "ms": us / 1e3, "count": k}
+                    for name, (us, k) in top],
+            "kernel_ms": {s: sum(e["dur"] for e in dev if s in e["name"])
+                          / 1e3 for s in symbols}}
+
+
+def encoder_states(cl_last: str) -> tuple:
+    """(the encoder's config, its state_dict) of a stage-2 checkpoint."""
+    sd, cfg = load_checkpoint(cl_last)
+    pre = "base_encoder."
+    return cfg.encoder, {k[len(pre):]: v for k, v in sd.items()
+                         if k.startswith(pre)}
+
+
+def aux_setup() -> dict:
+    """For `--aux`, what the five phases take from earlier phases of
+    `main`, made here at the same sizes: the reference-scale dataset (seed
+    0); a flagship model from seed 0 saved as a checkpoint, with its drug
+    embeddings and decoder weight (the serving phase's); a seeded rank
+    tensor in the ensemble's layout and shape (symmetric, zero diagonal,
+    [120, 855, 855] float32); and two seeded flagship encoders' state_dicts
+    (the pretrain phase's before and after)."""
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    ds = make_reference_scale_dataset(seed=0)
+    cfg = flagship_config(NUM_LABELS)
+    model = random_model(cfg, ds, seed=0).eval()
+    ckpt, emb = str(WORK / "flagship.pt"), str(WORK / "z.npy")
+    save_checkpoint(ckpt, model, cfg)
+    model.cuda()
+    coll = DDICollator(ds, split="train", seed=0, device="cuda")
+    z = P.embed_all_drugs(model, coll, coll.kg_batch())
+    np.save(emb, z)
+    w_sym = P.decoder_weight(model).cpu()
+    del model, coll
+    kw = reference_scale_kwargs(ENSEMBLE_SHRINK)
+    L, n = kw["num_labels"], kw["num_drugs"]
+    ranks = WORK / "ensemble" / "ranks.npy"
+    ranks.parent.mkdir()
+    t = np.random.default_rng(0).random((L, n, n), dtype=np.float32)
+    t += t.transpose(0, 2, 1)
+    t /= 2
+    t[:, np.arange(n), np.arange(n)] = 0
+    np.save(ranks, t)
+    del t
+    enc = MadrigalEncoder(cfg.model.encoder,
+                          *kg_schema(ds.kg_node_feats, ds.kg_edge_indices))
+    states = [{k: v.clone() for k, v in init_weights(
+        enc, torch.Generator().manual_seed(seed)).state_dict().items()}
+        for seed in (1, 2)]
+    return {"ds": ds, "ckpt": ckpt, "emb": emb, "z": z, "w_sym": w_sym,
+            "ranks": ranks, "enc_cfg": cfg.model.encoder,
+            "before": states[0], "after": states[1]}
+
+
+AUX_PHASES = ("lm_decoder", "analyze", "chemcpa_sweep", "profile",
+              "pretrain_embeds")
+
+
+def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
+    """`utils.profiling.trace` around one K1 call at the serving shape
+    (LABEL_CHUNK x SERVE_HEADS x 6,843 f32, the serving model's decoder
+    weight and embeddings) and around one stage-3 training step of the
+    flagship at the training phase's shapes (the reference scale /
+    SYNTHETIC_TRAIN_SHRINK, the HGT remat, 15 K2 launches), after one
+    untraced step: each trace must name K1's kernel (`gemm_f32`) or K2's
+    (`segment_sum_kernel`); each trace's top device operations and busy
+    share; StepTimer's summary over PROFILE_STEPS more steps;
+    memory_stats()."""
+    from madrigal_tpu_torch.utils import profiling
+
+    work = WORK / "profile"
+    f32 = torch.float32
+    zh = torch.from_numpy(z[:SERVE_HEADS]).cuda()
+    zt = torch.from_numpy(z).cuda()
+    w = w_sym[:LABEL_CHUNK].cuda()
+    ds = make_reference_scale_dataset(
+        seed=0, **reference_scale_kwargs(SYNTHETIC_TRAIN_SHRINK))
+    cfg = flagship_config(ds.num_labels)
+    enc = cfg.model.encoder
+    cfg = dataclasses.replace(cfg, label_chunk_triples=LABEL_CHUNK,
+                              model=dataclasses.replace(
+                                  cfg.model, encoder=dataclasses.replace(
+                                      enc, hgt=dataclasses.replace(
+                                          enc.hgt, remat_edge_types=True))))
+    batch, kg = DDICollator(ds, split="train", seed=0, device="cuda",
+                            kg_src_sort=True)(split_rows(ds)["train"])
+    trainer = FinetuneTrainer(cfg, batch, kg,
+                              random_model(cfg, ds, seed=0).cuda())
+    torch.cuda.synchronize()
+    reset_launches()  # counts start here
+    with profiling.trace(str(work / "k1")):
+        with profiling.annotate("k1_serving_chunk"):
+            scores = bilinear.bilinear_scores(zh, zt, w, f32, f32)
+        torch.cuda.synchronize()
+    trainer.train_epoch()  # untraced: the step's first allocations
+    with profiling.trace(str(work / "step")):
+        with profiling.annotate("training_step"):
+            losses = trainer.train_epoch()
+        torch.cuda.synchronize()
+    timer = profiling.StepTimer()
+    for _ in range(PROFILE_STEPS):
+        timer.start()
+        trainer.train_epoch()
+        timer.stop(list(trainer.model.parameters())[:1])
+    counts = read_launches()  # counts end here
+    traces = {"k1": trace_summary(work / "k1", ("gemm_f32",)),
+              "step": trace_summary(work / "step", ("segment_sum_kernel",))}
+    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
+                                    enc.hgt.num_layers)
+    require(counts == {"bilinear_scores": 1,
+                       "sorted_segment_sum": per_step * (2 + PROFILE_STEPS)}
+            and all(np.isfinite(v) for v in losses.values())
+            and torch.isfinite(scores).all(),
+            f"profile: launches {counts}, losses {losses}")
+    for name, tr in traces.items():
+        require(all(ms > 0 for ms in tr["kernel_ms"].values()),
+                f"profile: the {name} trace names no kernel of "
+                f"{list(tr['kernel_ms'])}")
+    emit({"phase": "profile", "k1_shape": [LABEL_CHUNK, SERVE_HEADS,
+                                           NUM_DRUGS],
+          "step_shrink": SYNTHETIC_TRAIN_SHRINK, "traces": traces,
+          "step_timer": timer.summary(), "memory": profiling.memory_stats(),
+          "launches": counts})
+    del trainer, batch, kg
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --train_memory: each choice of memory flags for the training run
 MEMORY_CHOICES = [
     [],
@@ -2811,9 +3357,10 @@ def main(argv) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         print(gpu_line(), flush=True)
         return 0
-    if argv not in ([], ["--kernels"], ["--alt"]):
+    if argv not in ([], ["--kernels"], ["--alt"], ["--aux"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "--kernels, --pretrain, --stage1, --alt or --train_memory")
+                 "--kernels, --pretrain, --stage1, --alt, --aux or "
+                 "--train_memory")
 
     wall = {}
 
@@ -2823,6 +3370,25 @@ def main(argv) -> int:
         wall[name] = time.perf_counter() - t0
         return res
 
+    if argv == ["--aux"]:
+        run("build", phase_build)
+        aux = run("aux_setup", aux_setup)
+        paths = {"lm_decoder": run("lm_decoder", phase_lm_decoder,
+                                   aux["ckpt"], aux["emb"]),
+                 "analyze": run("analyze", phase_analyze, aux["ranks"]),
+                 "chemcpa_sweep": run("chemcpa_sweep", phase_chemcpa_sweep),
+                 "profile": run("profile", phase_profile, aux["w_sym"],
+                                aux["z"]),
+                 "pretrain_embeds": run("pretrain_embeds",
+                                        phase_pretrain_embeds,
+                                        aux["enc_cfg"], aux["ds"],
+                                        aux["before"], aux["after"])}
+        emit({"phase": "wall", "seconds": wall, "launches_by_path": paths,
+              "budget": {"aux_s": sum(wall[p] for p in AUX_PHASES),
+                         "aux_limit_s": AUX_BUDGET_S}})
+        shutil.rmtree(WORK, ignore_errors=True)
+        print(gpu_line(), flush=True)
+        return 0
     if argv == ["--alt"]:
         run("build", phase_build)
         alt_phases(run, run("data", make_reference_scale_dataset))
@@ -2841,25 +3407,40 @@ def main(argv) -> int:
     k1_checks = run("kernels", phase_kernels)
     k2_checks = run("k2_kernels", phase_k2_kernels)
     run("small", phase_small)
-    serving, model, z, ds = run("serving", phase_serving)
+    serving, model, z, ds, ckpt, emb = run("serving", phase_serving)
     paths = {"serving": serving}
     paths["ranks"], finish_ranks = run("ranks", phase_ranks, model, z)
-    del model, z
+    w_sym = P.decoder_weight(model).cpu()  # the profile phase's K1 call
+    del model
     # the alternative encoders, the bf16 mode and the reference's
     # checkpoints, on the serving phase's dataset
     alt_paths, k2_bf16 = alt_phases(run, ds)
     paths.update(alt_paths)
     del ds
-    # the rank references run on the host beside the next three phases
-    paths["predict_ensemble"] = run("predict_ensemble",
-                                    phase_predict_ensemble)
+    # the rank references run on the host beside the next four phases
+    paths["predict_ensemble"], ensemble_ranks = run(
+        "predict_ensemble", phase_predict_ensemble)
+    paths["analyze"] = run("analyze", phase_analyze, ensemble_ranks)
+    shutil.rmtree(ensemble_ranks.parent)
     run("train_small", phase_train_small)
     run("pretrain_small", phase_pretrain_small)
     run("stage1_small", phase_stage1_small)
+    paths["chemcpa_sweep"] = run("chemcpa_sweep", phase_chemcpa_sweep)
     paths["training"] = run("training", phase_training)
+    # the LM head on the serving phase's checkpoint and embeddings (after
+    # the phases that build optimizers: the process's first one imports
+    # torch._dynamo, seconds of host time whichever phase pays them)
+    paths["lm_decoder"] = run("lm_decoder", phase_lm_decoder, ckpt, emb)
+    paths["profile"] = run("profile", phase_profile, w_sym, z)
+    del w_sym, z
     # stage 1 -> stage 2 -> (data_dir) stage 3 -> serving, on the card
     paths["stage1"], stage1 = run("stage1", phase_stage1)
-    paths["pretrain"], stage2 = run("pretrain", phase_pretrain, stage1)
+    paths["pretrain"], stage2, start, pre_ds = run("pretrain",
+                                                   phase_pretrain, stage1)
+    enc_cfg, after = encoder_states(stage2)
+    paths["pretrain_embeds"] = run("pretrain_embeds", phase_pretrain_embeds,
+                                   enc_cfg, pre_ds, start, after)
+    del start, after, pre_ds
     shutil.rmtree(WORK / "stage1")
     paths["pretrain_final_embeds"] = run("pretrain_final_embeds",
                                          phase_pretrain_final_embeds)
@@ -2876,6 +3457,7 @@ def main(argv) -> int:
                                      "pretrain_final_embeds"))
     stage1_s = wall["stage1_small"] + wall["stage1"]
     alt_s = sum(wall[p] for p in ALT_PHASES)
+    aux_s = sum(wall[p] for p in AUX_PHASES)
     emit({"phase": "wall", "seconds": wall, "main_s": main_s,
           "budget": {"stage2_s": stage2_s, "stage2_limit_s": STAGE2_BUDGET_S,
                      "stage2_met": stage2_s <= STAGE2_BUDGET_S,
@@ -2883,6 +3465,8 @@ def main(argv) -> int:
                      "stage1_met": stage1_s <= STAGE1_BUDGET_S,
                      "alt_s": alt_s, "alt_limit_s": ALT_BUDGET_S,
                      "alt_met": alt_s <= ALT_BUDGET_S,
+                     "aux_s": aux_s, "aux_limit_s": AUX_BUDGET_S,
+                     "aux_met": aux_s <= AUX_BUDGET_S,
                      "main_limit_s": MAIN_BUDGET_S,
                      "main_met": main_s <= MAIN_BUDGET_S}})
 
@@ -2901,10 +3485,11 @@ def main(argv) -> int:
                 "timings": timed + list(extra)}
 
     # K1: timed last at the all-pairs bench shape, bf16 in and out, and
-    # launched on the serving, rank and ensemble paths; K2: timed last at
-    # the full-scale training run's largest edge type, at the shape that
-    # run gives it, and launched on the training, stage-1 and stage-2
-    # paths.
+    # launched on the serving, rank, ensemble and profile paths; K2: timed
+    # last at the full-scale training run's largest edge type, at the
+    # shape that run gives it, and launched on the training, stage-1,
+    # stage-2 and profile paths (the LM head, the sweep, analyze and
+    # pretrain_embeds launch neither: their counts stay in the line).
     # `launches` sums the paths,
     # each counted from 0 just before it and read just after
     emit({"kernels": [

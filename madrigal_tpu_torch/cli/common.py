@@ -19,6 +19,7 @@ import argparse
 import json
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from .. import config as config_lib
@@ -119,6 +120,19 @@ def reference_scale_dataset(args: argparse.Namespace) -> SyntheticDataset:
     --synthetic_scale_shrink."""
     return make_reference_scale_dataset(
         seed=args.seed, **reference_scale_kwargs(args.synthetic_scale_shrink))
+
+
+def tx_rows(ds) -> Tuple[np.ndarray, np.ndarray]:
+    """The tx signatures [C, N, G] as (genes [R, G] float32, cell line
+    [R] int32) rows, only the available ones when any is: the rows of
+    stage 1's tx adaptation and of the chemCPA sweep."""
+    C, N, G = ds.tx_table.shape
+    genes = ds.tx_table.reshape(C * N, G).astype(np.float32)
+    cov = np.repeat(np.arange(C, dtype=np.int32), N)
+    avail = ds.mod_avail[:, -C:].T.reshape(-1) == 1
+    if avail.any():
+        genes, cov = genes[avail], cov[avail]
+    return genes, cov
 
 
 def load_data(args: argparse.Namespace, device: torch.device,

@@ -33,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from .common import add_common_args, load_data, setup_platform
+from .common import add_common_args, load_data, setup_platform, tx_rows
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -170,14 +170,9 @@ def main(argv=None) -> str:
         )
         trainer = ChemCPAAdaptTrainer(cfg, lr=args.lr, seed=args.seed,
                                       device=device)
-        # [C, N, G] signatures flattened into (genes, cell-line) rows for
-        # the drug-free adaptation objective (the Madrigal tx stage)
-        C, N, G = ds.tx_table.shape
-        genes_all = ds.tx_table.reshape(C * N, G).astype(np.float32)
-        cov_all = np.repeat(np.arange(C, dtype=np.int32), N)
-        avail = ds.mod_avail[:, -C:].T.reshape(-1) == 1
-        if avail.any():
-            genes_all, cov_all = genes_all[avail], cov_all[avail]
+        # (genes, cell-line) rows for the drug-free adaptation objective
+        # (the Madrigal tx stage)
+        genes_all, cov_all = tx_rows(ds)
         bs = min(args.tx_batch_size, len(genes_all))
         genes_dev = torch.as_tensor(genes_all, device=device)
         cov_dev = torch.as_tensor(cov_all, device=device)

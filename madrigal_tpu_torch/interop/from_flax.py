@@ -24,7 +24,8 @@ a predictor has statistics and no scale or bias, on both sides). The
 JAX stage-1 trainers' variables load into the port's stage-1 models
 (`train/modality_pretrain.py`) through the `*_state_dict` functions below,
 and a JAX stage-1 checkpoint becomes a port one with
-`stage1_checkpoint_from_flax`.
+`stage1_checkpoint_from_flax`; a JAX `LMDecoder`'s params load into the
+port's (`models/lm_decoder.py`) through `lm_decoder_state_dict`.
 
 The reference's own (upstream Madrigal) checkpoints come in through the
 copies of the JAX package's converters (`interop/convert_checkpoint.py`,
@@ -126,7 +127,7 @@ def stage2_checkpoint_from_flax(variables: Mapping, path: str, cfg,
     save_checkpoint(path, flax_to_state_dict(variables), cfg, epoch=epoch)
 
 
-def _stage1_state_dict(variables: Mapping, model: str, tops) -> Dict[
+def _checked_state_dict(variables: Mapping, model: str, tops) -> Dict[
         str, torch.Tensor]:
     have = {k for coll in variables.values() for k in coll}
     if not set(tops) <= have:
@@ -139,22 +140,22 @@ def gin_property_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX `GINPretrainer`'s variables ({'params', 'batch_stats'} of
     `GINPropertyModel`: the GIN `encoder` and the task `head`) as the
     port's GINPropertyModel state_dict."""
-    return _stage1_state_dict(variables, "GINPropertyModel",
-                              ("encoder", "head"))
+    return _checked_state_dict(variables, "GINPropertyModel",
+                               ("encoder", "head"))
 
 
 def hgt_link_pred_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX `HGTLinkPredTrainer`'s variables ({'params'} of
     `HGTLinkPredModel`: the HGT `encoder` with every node type's head, and
     the shared `decoder`) as the port's HGTLinkPredModel state_dict."""
-    return _stage1_state_dict(variables, "HGTLinkPredModel",
-                              ("encoder", "decoder"))
+    return _checked_state_dict(variables, "HGTLinkPredModel",
+                               ("encoder", "decoder"))
 
 
 def tabular_ae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX `TabularAETrainer`'s variables ({'params'} of `TabularAE`)
     as the port's TabularAE state_dict."""
-    return _stage1_state_dict(variables, "TabularAE", ("encoder", "decoder"))
+    return _checked_state_dict(variables, "TabularAE", ("encoder", "decoder"))
 
 
 def chemcpa_adapt_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -162,8 +163,16 @@ def chemcpa_adapt_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     of `ChemCPAEncoder` after `warmup`: with the decoder and, unless
     disable_adv, the adversaries) as the state_dict of the port's
     `ChemCPAEncoder(cfg, adaptation=True)`."""
-    return _stage1_state_dict(variables, "ChemCPAEncoder (stage 1)",
-                              ("encoder", "decoder", "cov_embedding"))
+    return _checked_state_dict(variables, "ChemCPAEncoder (stage 1)",
+                               ("encoder", "decoder", "cov_embedding"))
+
+
+def lm_decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `LMDecoder`'s params (its `state.params` in
+    `LMDecoderTrainer`, as numpy) as the port's LMDecoder state_dict."""
+    return _checked_state_dict({"params": params}, "LMDecoder",
+                               ("drug_project", "text_project", "out_dense1",
+                                "out_dense2"))
 
 
 def stage1_checkpoint_from_flax(tree: Mapping, path: str, cfg,

@@ -411,7 +411,7 @@ import torch
 # spinning intra-op threads on a full host only wait for each other
 torch.set_num_threads(1)
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml",
-          "sklearn", "umap", "matplotlib", "madrigal_tpu")
+          "sklearn", "umap", "matplotlib", "transformers", "madrigal_tpu")
 for name in banned:  # as on the card's machine: importing them fails
     sys.modules[name] = None
 import madrigal_tpu_torch
@@ -432,7 +432,18 @@ with tempfile.TemporaryDirectory() as root:
         "--set", "model.encoder.hgt.hidden_dim=64",
         "--set", "model.encoder.transformer.num_layers=1"])
     assert len(res["losses"]) == 1
-    from madrigal_tpu_torch.cli import modality_pretrain, pretrain
+    from madrigal_tpu_torch.cli import chemcpa_sweep, modality_pretrain
+    from madrigal_tpu_torch.cli import pretrain
+    # the sweep on a .json file; its best tx encoder warm-starts stage 2
+    import json
+    with open(root + "/sweep.json", "w") as f:
+        json.dump({"fixed": {"training.num_epochs": 2,
+                             "model.hparams.dim": 16,
+                             "model.hparams.autoencoder_width": 16,
+                             "model.hparams.autoencoder_depth": 1}}, f)
+    sweep = chemcpa_sweep.main([
+        "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
+        "--sweep_yaml", root + "/sweep.json", "--save_dir", root + "/sw"])
     stage1 = [modality_pretrain.main([
         "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
         "--num_epochs", "2", "--feature_dim", "16", "--modality", mod,
@@ -444,7 +455,7 @@ with tempfile.TemporaryDirectory() as root:
         "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
         "--num_steps", "2", "--batch_size", "8", "--save_checkpoints", "1",
         "--final_embeds_eval", "--save_dir", root + "/cl",
-        "--modality_ckpts", *stage1,
+        "--modality_ckpts", *stage1, sweep["checkpoint"],
         "--set", "encoder.feature_dim=16",
         "--set", "encoder.gin.hidden_dims=[16]",
         "--set", "encoder.hgt.hidden_dim=8",
@@ -459,6 +470,22 @@ with tempfile.TemporaryDirectory() as root:
         "--set", "encoder.proj.hidden_dims=[16]",
         "--set", "moco_mlp_dim=16"])
     assert len(res["losses"]) == 2 and res["final_embeds"]
+    # the LM head and the analysis CLI
+    import numpy as np
+    from madrigal_tpu_torch.cli import analyze, train_lm
+    res = train_lm.main([
+        "--platform", "cpu", "--synthetic", "--synthetic_drugs", "12",
+        "--num_epochs", "1", "--project_dim", "8", "--mlp_dim", "16",
+        "--save_dir", root + "/lm"])
+    assert len(res["losses"]) == 1
+    t = np.random.RandomState(0).rand(3, 12, 12).astype(np.float32)
+    np.save(root + "/r.npy", t)
+    np.savetxt(root + "/v.csv", [[1, 0, 1], [2, 0, 0], [3, 1, 1], [4, 2, 0],
+                                 [5, 3, 1], [6, 4, 0]], fmt="%d")
+    analyze.main(["--tensor", root + "/r.npy", "--labels", "0,2",
+                  "--cv_auroc", "--validate", root + "/v.csv"])
+    analyze.main(["--tensor", root + "/r.npy", "--label", "1",
+                  "--validate", root + "/v.csv"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned and sys.modules[m] is not None)
 print(" ".join(sorted(m for m in sys.modules
@@ -470,11 +497,13 @@ sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 def test_port_imports_no_jax_pandas_or_reference_package():
     """Every module imports, and the exporter, the loader (with the native
     featurizer), the training CLI on --data_dir, the stage-1 CLI (kg, and
-    tx with its adversaries and probe) and 2 steps of the stage-2 CLI
-    warm-started from those checkpoints with its final-embeddings
-    evaluation run, with JAX,
-    pandas, pyyaml, scikit-learn, umap, matplotlib and the JAX package
-    unimportable."""
+    tx with its adversaries and probe), 2 steps of the stage-2 CLI
+    warm-started from those checkpoints and the chemCPA sweep's best
+    (the sweep on a .json file) with its final-embeddings evaluation, the
+    LM decoder and the analysis CLI (--cv_auroc and binary --validate)
+    run, with JAX, flax,
+    optax, orbax, pandas, pyyaml, scikit-learn, umap, matplotlib,
+    transformers and the JAX package unimportable."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -491,7 +520,12 @@ def test_port_imports_no_jax_pandas_or_reference_package():
               "eval.cl_metrics", "eval.geomca", "cli.modality_pretrain",
               "train.modality_pretrain", "train.transfer", "models.gat",
               "models.kg_alt", "models.vae", "data.kg_sampling",
-              "interop.convert_checkpoint", "interop.torch_convert"):
+              "interop.convert_checkpoint", "interop.torch_convert",
+              "utils.config_gen", "train.chemcpa_sweep",
+              "cli.chemcpa_sweep", "models.lm_decoder", "train.lm_decoder",
+              "cli.train_lm", "analysis", "analysis.ddi_queries",
+              "analysis.profiles", "analysis.pretrain_embeds",
+              "cli.analyze", "utils.profiling"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 
