@@ -57,6 +57,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
      2.5e-7, and a tie case against the numpy stable formula, exactly
      (these references run on the host beside the phases after it, and
      the ranks line follows theirs);
+  6x. parallel_small: `parallel.dryrun`'s ranks (PARALLEL_RANKS,
+     sharing the card through gloo; NCCL refuses a shared card): the JAX
+     dryrun's seven sharded paths at its widths, each against one rank
+     (the dryrun raises on a failed check), each path's launches a rank;
   6a. alt_small: the alternative encoders (ALT_ENCODERS: gat/hgt,
      gin/han, gin/rgcn) and gat/hgt with both compute types at bf16, at
      narrow_config's widths on ALT_SMALL_DRUGS drugs, ALT_SMALL_STEPS
@@ -96,6 +100,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
      a gmean aggregate's top-k with a known mask, an enrichment, a binary
      validation and its cross-validated AUROC, against numpy on the same
      mmap, with no scikit-learn, pandas or pyyaml loaded;
+  7b. parallel: the multi-GPU paths at flagship widths (phase_parallel):
+     the 2-rank label-sharded ranks of phase 6's outcomes, equal to its
+     ranks; a shard_finetune_trainer step at the reference scale /
+     PARALLEL_SHRINK on meshes 2 x 1 and 1 x 2, the KG replicated and
+     edge-sharded, and a dp-2 shard_cl_pretrainer step, within 1e-4
+     relative of the one-card steps; `cli.predict --sharded` through
+     torchrun on phase 7's checkpoints; the ranks and steps again as a
+     one-rank NCCL group; each part's seconds, each rank's launches and
+     peak memory (counts set to 0 before each part, read after);
   8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
      masks, under AdamW (with the Evaluator's val metrics after them),
@@ -173,9 +186,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 Standard output: one JSON line per phase, a line of each phase's wall
 seconds (with the stage-2 phases' sum, the stage-1 phases' sum, the
-sum of phases 6a-6d, the sum of phases 7a, 10a, 11x, 11a and 13a, and
-`main` against STAGE2_BUDGET_S, STAGE1_BUDGET_S, ALT_BUDGET_S,
-AUX_BUDGET_S and MAIN_BUDGET_S), the
+sum of phases 6a-6d, the sum of phases 7a, 10a, 11x, 11a and 13a, the
+sum of phases 6x and 7b, and `main` against STAGE2_BUDGET_S,
+STAGE1_BUDGET_S, ALT_BUDGET_S, AUX_BUDGET_S, PARALLEL_BUDGET_S and
+MAIN_BUDGET_S), the
 `{"kernels": [...]}` line,
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The script
 writes only under `build/` in the checkout and imports no JAX.
@@ -208,6 +222,15 @@ work. It prints no ok line.
 builds both kernels, the reference-scale dataset, and runs phases 6a-6d
 only: the quick loop for the alternative encoders, the bf16 modes and
 the reference's checkpoints. It prints no ok line.
+
+    python3 chip_smoke.py --parallel
+
+builds both kernels and runs phases 6x and 7b only, with their own
+references (a seeded table of NUM_DRUGS drugs and RANK_CHUNK outcomes
+ranked by rank_tensor; the ensemble's checkpoints and their unsharded
+export): the quick loop for multi-GPU work. It prints no ok line.
+(`--parallel_rank DIR` is one of phase 7b's ranks, started by the
+script itself.)
 
     python3 chip_smoke.py --aux
 
@@ -374,7 +397,13 @@ ANALYZE_AGG_LABELS, ANALYZE_CV_LABELS, ANALYZE_TOPK = 3, 8, 20
 EMBED_DRUGS, EMBED_DRUGS_VS_CPU = 10, 2
 PROFILE_STEPS, TOP_DEVICE_OPS = 3, 10
 AUX_BUDGET_S = 45.0
-MAIN_BUDGET_S = 445.0
+# the multi-GPU phases (parallel_small, parallel): ranks sharing the one
+# card (gloo), the training data's scale divisor, the stage-2 batch (the
+# full-scale run's, divided as the data is), and their wall-time budget
+PARALLEL_RANKS, PARALLEL_SHRINK = 2, 8
+PARALLEL_CL_BATCH = 768 // 8
+PARALLEL_BUDGET_S = 75.0
+MAIN_BUDGET_S = 520.0
 # K2 reduces the fused k|v table of the 128-wide HGT; timed at the
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
@@ -1043,7 +1072,33 @@ def phase_ranks(model, z: np.ndarray):
               "peak_device_mem_gb": peak})
         shutil.rmtree(work)
 
-    return counts, finish
+    return counts, finish, ranks, w_sym.cpu().numpy()
+
+
+def ensemble_argv(ckpts) -> list:
+    """The serving CLI's arguments for the ensemble's checkpoints at the
+    reference scale / ENSEMBLE_SHRINK (predict_ensemble, and the sharded
+    export of the parallel phase)."""
+    return ["--checkpoint", *ckpts, "--synthetic_scale",
+            "--synthetic_scale_shrink", str(ENSEMBLE_SHRINK), "--seed", "0",
+            "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
+            "--eval_type", "str+kg_full"]
+
+
+def ensemble_checkpoints(work: Path) -> tuple:
+    """The ensemble's two flagship checkpoints (seeds 0 and 1) for the
+    reference scale / ENSEMBLE_SHRINK, under `work`: (paths, each one's
+    symmetrized decoder weight on the card, drugs, outcomes)."""
+    ds = make_reference_scale_dataset(
+        seed=0, **reference_scale_kwargs(ENSEMBLE_SHRINK))
+    cfg = flagship_config(ds.num_labels)
+    ckpts, w_syms = [], []
+    for seed in (0, 1):
+        model = random_model(cfg, ds, seed)
+        ckpts.append(str(work / f"seed{seed}.pt"))
+        save_checkpoint(ckpts[-1], model, cfg)
+        w_syms.append(P.decoder_weight(model).cuda())
+    return ckpts, w_syms, ds.num_drugs, ds.num_labels
 
 
 def phase_predict_ensemble() -> dict:
@@ -1060,25 +1115,12 @@ def phase_predict_ensemble() -> dict:
 
     work = WORK / "ensemble"
     work.mkdir(parents=True, exist_ok=True)
-    ds = make_reference_scale_dataset(
-        seed=0, **reference_scale_kwargs(ENSEMBLE_SHRINK))
-    cfg = flagship_config(ds.num_labels)
-    ckpts, w_syms = [], []
-    for seed in (0, 1):
-        model = random_model(cfg, ds, seed)
-        ckpts.append(str(work / f"seed{seed}.pt"))
-        save_checkpoint(ckpts[-1], model, cfg)
-        w_syms.append(P.decoder_weight(model).cuda())
-    n, L = ds.num_drugs, ds.num_labels
-    del ds, model
+    ckpts, w_syms, n, L = ensemble_checkpoints(work)
     out = {k: str(work / f"{k}.npy") for k in ("ranks", "scores", "z")}
     reset_launches()  # counts start here
     t0 = time.perf_counter()
-    probs = np.asarray(cli_predict.main([
-        "--checkpoint", *ckpts, "--synthetic_scale",
-        "--synthetic_scale_shrink", str(ENSEMBLE_SHRINK), "--seed", "0",
-        "--platform", "cuda", "--label_chunk", str(ENSEMBLE_CHUNK),
-        "--eval_type", "str+kg_full", "--export_ranks", out["ranks"],
+    probs = np.asarray(cli_predict.main(ensemble_argv(ckpts) + [
+        "--export_ranks", out["ranks"],
         "--export_scores", out["scores"], "--export_embeddings", out["z"],
         "--triples", *ENSEMBLE_TRIPLES]))
     t_cli = time.perf_counter() - t0
@@ -1151,6 +1193,404 @@ def phase_predict_ensemble() -> dict:
           "reference_s": time.perf_counter() - t0})
     # the directory stays for the analyze phase, which reads the ranks
     return counts, Path(out["ranks"])
+
+
+# ------------------------------------------------------------ parallel
+def parallel_pretrain_config(enc) -> C.PretrainConfig:
+    """The parallel phase's stage-2 configuration: the flagship encoder
+    (dropout 0, so the dp step's draws are the one card's) with the
+    stage-2 settings of `pretrain_argv`, batch PARALLEL_CL_BATCH."""
+    return C.PretrainConfig(
+        encoder=enc, pretrain_mode="str_center_uni",
+        pretrain_unbalanced=True, raw_encoder_output=True,
+        pretrain_batch_size=PARALLEL_CL_BATCH, seed=0)
+
+
+def parallel_data():
+    """The parallel phase's training data: the reference scale /
+    PARALLEL_SHRINK, its collated batch and KG (K2's layout) on the card,
+    and the flagship configuration (dropout 0) for its outcomes."""
+    ds = make_reference_scale_dataset(
+        seed=0, **reference_scale_kwargs(PARALLEL_SHRINK))
+    coll = DDICollator(ds, split="train", device="cuda", kg_src_sort=True)
+    batch, kg = coll()
+    return ds, coll, batch, kg, flagship_config(ds.num_labels, dropout=False)
+
+
+def parallel_steps(work: Path, ds, coll, batch, kg, cfg, meshes) -> dict:
+    """One finetune step from `work`/ft.pt on each (dp, label, KG axis) of
+    `meshes` and one stage-2 step from `work`/cl.pt (device table, dp over
+    every rank), on this rank; each with its losses, seconds and launch
+    counts (set to 0 just before the step, read just after)."""
+    from madrigal_tpu_torch.parallel.mesh import make_mesh
+    from madrigal_tpu_torch.parallel.train_step import (
+        make_train_mesh, shard_cl_pretrainer, shard_finetune_trainer)
+
+    schema = kg_schema(ds.kg_node_feats, ds.kg_edge_indices)
+    out = {}
+    for dp, label, axis in meshes:
+        t0 = time.perf_counter()
+        model = build_model(finetune.training_model_config(cfg), *schema,
+                            device="cuda")
+        model.load_state_dict(torch.load(work / "ft.pt"))
+        trainer = FinetuneTrainer(cfg, batch, kg, model)
+        shard_finetune_trainer(trainer, make_train_mesh(label_dim=label),
+                               kg_shard_axis=axis)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_launches()  # counts start here
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch()
+        torch.cuda.synchronize()
+        out[f"finetune_{dp}x{label}_kg_{axis or 'replicated'}"] = {
+            "losses": losses, "s": time.perf_counter() - t0,
+            "setup_s": setup_s,
+            "launches": read_launches()}  # counts end here
+        del trainer, model
+    t0 = time.perf_counter()
+    pcfg = parallel_pretrain_config(cfg.model.encoder)
+    model = build_simclr_model(pcfg, *schema).cuda()
+    model.load_state_dict(torch.load(work / "cl.pt"))
+    trainer = CLPretrainer(pcfg, coll, kg, model)
+    shard_cl_pretrainer(trainer, make_mesh(("dp",)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    loss = trainer.train_step()
+    out["stage2_dp"] = {"loss": loss, "s": time.perf_counter() - t0,
+                        "setup_s": setup_s,
+                        "launches": read_launches()}  # counts end here
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(work: Path) -> int:
+    """One rank of the parallel phase's group (`chip_smoke.py
+    --parallel_rank DIR`, started by `parallel.dryrun.launch` with
+    torchrun's variables; gloo, as the ranks share one card): the
+    label-sharded ranks of `work`'s z and w into `work`/ranks.npy, then
+    `parallel_steps` on meshes 2 x 1 and 1 x 2, the KG replicated and
+    edge-sharded. Rank 0 writes every rank's results to
+    `work`/results.json."""
+    import torch.distributed as dist
+
+    from madrigal_tpu_torch.parallel import allpairs, multihost
+    from madrigal_tpu_torch.parallel.collectives import all_gather_object
+    from madrigal_tpu_torch.parallel.dryrun import prewarm_optimizer_import
+    from madrigal_tpu_torch.parallel.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    prewarm_optimizer_import()  # beside the ranks part
+    multihost.initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    res = {"init_s": time.perf_counter() - t_start}
+    z, w = np.load(work / "z.npy"), np.load(work / "w.npy")
+    out = (np.lib.format.open_memmap(
+        work / "ranks.npy", mode="w+", dtype=np.float32,
+        shape=(w.shape[0], z.shape[0], z.shape[0])) if rank == 0 else None)
+    mesh = make_mesh(("label",))
+    reset_launches()  # counts start here
+    t0 = time.perf_counter()
+    allpairs.sharded_rank_tensor(mesh, z, w,
+                                 chunk_per_device=w.shape[0] // 2, out=out)
+    res["ranks"] = {"s": time.perf_counter() - t0,
+                    "launches": read_launches()}  # counts end here
+    if out is not None:
+        out.flush()
+        del out
+    t0 = time.perf_counter()
+    data = parallel_data()
+    res["data_s"] = time.perf_counter() - t0
+    res.update(parallel_steps(work, *data, meshes=[
+        (2, 1, None), (2, 1, "dp"), (1, 2, None), (1, 2, "dp")]))
+    res["peak_device_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["rank_s"] = time.perf_counter() - t_start
+    every = all_gather_object(res)
+    if rank == 0:
+        (work / "results.json").write_text(json.dumps(every))
+    multihost.shutdown()
+    return 0
+
+
+def phase_parallel_small() -> dict:
+    """`python -m madrigal_tpu_torch.parallel.dryrun --nproc 2 --device
+    cuda --backend gloo`: the JAX dryrun's seven sharded paths at its
+    widths on 2 ranks sharing the card, each held to the same work done
+    on one rank (the dryrun raises on a failed check). Returns the launch
+    counts summed over the paths and ranks."""
+    from madrigal_tpu_torch.parallel import dryrun
+
+    torch.cuda.empty_cache()  # the card is the ranks' now
+    t0 = time.perf_counter()
+    # the ranks `python -m madrigal_tpu_torch.parallel.dryrun --nproc 2
+    # --device cuda --backend gloo` starts, started from this process
+    ranks = dryrun.launch(
+        [sys.executable, "-m", "madrigal_tpu_torch.parallel.dryrun",
+         "--worker", "--device", "cuda", "--backend", "gloo"],
+        PARALLEL_RANKS, timeout=300, cwd=ROOT)
+    for r in ranks:
+        require(r.returncode == 0, f"parallel dryrun rank {r.rank} exited "
+                f"{r.returncode}:\n{r.stderr[-4000:]}")
+    line = json.loads([l for l in ranks[0].stdout.splitlines()
+                       if l.startswith("{")][-1])
+    require(line.get("dryrun") == "ok" and len(line["paths"]) == 7,
+            f"parallel dryrun: {line}")
+    counts = {"bilinear_scores": 0, "sorted_segment_sum": 0}
+    for path in line["paths"].values():
+        for per_rank in path["launches"]:
+            for k in counts:
+                counts[k] += per_rank[k]
+    # K1 scores each block of path 2's outcomes on both ranks; K2 runs in
+    # the replicated KG's backward (paths 1, 7) and nowhere under graph
+    # parallelism (paths 4-6)
+    k1 = -(-dryrun.NUM_LABELS
+           // (PARALLEL_RANKS * dryrun.RANK_CHUNK_PER_DEVICE))
+    require(all(r["bilinear_scores"] == k1
+                for r in line["paths"]["2_ranks"]["launches"])
+            and all(r["sorted_segment_sum"] > 0
+                    for r in line["paths"]["1_finetune"]["launches"])
+            and all(r["sorted_segment_sum"] == 0
+                    for p in ("4_kg_table", "5_three_way",
+                              "6_cl_host_collate")
+                    for r in line["paths"][p]["launches"]),
+            f"parallel dryrun launches: {line['paths']}")
+    emit({"phase": "parallel_small", "ranks": line["nproc"],
+          "backend": line["backend"],
+          "paths": {k: {"err": v["err"], "tol": v["tol"], "s": v["s"],
+                        "launches": v["launches"]}
+                    for k, v in line["paths"].items()},
+          "ranks_s": line["seconds"], "command_s": time.perf_counter() - t0,
+          "peak_device_mem_gb": [b / 1e9 for b in line["peak_bytes"]],
+          "launches": counts})
+    return counts
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-12)
+
+
+def same_ranks(got, want) -> bool:
+    """Exact equality of two [L, N, N] rank tensors, outcome by outcome
+    (either may be an np.memmap)."""
+    return got.shape == want.shape and all(
+        np.array_equal(got[l], want[l]) for l in range(want.shape[0]))
+
+
+def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
+                   ens: Path) -> dict:
+    """The multi-GPU paths at the flagship's widths, the ranks sharing
+    the card through gloo:
+      (a) sharded_rank_tensor over 2 ranks for the ranks phase's
+          RANK_CHUNK outcomes of `w` at all of `z`'s drugs, equal to that
+          phase's `ranks_ref`;
+      (b) one shard_finetune_trainer step on the reference scale /
+          PARALLEL_SHRINK, meshes 2 x 1 and 1 x 2, the KG replicated (K2
+          launched a step on each rank) and edge-sharded (K2 0 times),
+          losses within 1e-4 relative of the one-card step from the same
+          weights and masks;
+      (c) one device-table shard_cl_pretrainer step, dp 2, against the
+          one-card step;
+      (d) `torchrun --nproc_per_node=2 -m madrigal_tpu_torch.cli.predict
+          --sharded` on the ensemble's checkpoints in `ens`, its ranks
+          equal to the unsharded ranks of its own embeddings
+          (check_sharded_cli), and set beside that directory's unsharded
+          run;
+      (e) (a) and (b) again in this process as a one-rank NCCL group.
+    (d) starts first; (a)-(c) run in two spawned ranks (`parallel_rank`)
+    beside it, the one-card references and (e) here meanwhile."""
+    from madrigal_tpu_torch.parallel import allpairs, multihost
+    from madrigal_tpu_torch.parallel.dryrun import free_port, launch
+    from madrigal_tpu_torch.parallel.mesh import make_mesh
+
+    work = WORK / "parallel"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()  # the card is shared with the ranks
+    t_phase = time.perf_counter()
+    pool = ThreadPoolExecutor(2)
+    ckpts = [str(ens / f"seed{s}.pt") for s in (0, 1)]
+    cli = pool.submit(
+        subprocess.run,
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(PARALLEL_RANKS), "--master_port", str(free_port()), "-m",
+         "madrigal_tpu_torch.cli.predict", *ensemble_argv(ckpts),
+         "--sharded", "--backend", "gloo", "--export_ranks",
+         str(work / "cli_ranks.npy"), "--export_embeddings",
+         str(work / "cli_z.npy")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    np.save(work / "z.npy", z)
+    np.save(work / "w.npy", w)
+    t0 = time.perf_counter()
+    ds, coll, batch, kg, cfg = parallel_data()
+    data_s = time.perf_counter() - t0
+    model = random_model(cfg, ds, seed=3)
+    torch.save(model.state_dict(), work / "ft.pt")
+    pcfg = parallel_pretrain_config(cfg.model.encoder)
+    cl_model = init_weights(build_simclr_model(
+        pcfg, *kg_schema(ds.kg_node_feats, ds.kg_edge_indices)),
+        torch.Generator().manual_seed(4))
+    torch.save(cl_model.state_dict(), work / "cl.pt")
+
+    t0 = time.perf_counter()
+    ranks_job = pool.submit(
+        launch, [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--parallel_rank", str(work)], PARALLEL_RANKS,
+        timeout=300, cwd=ROOT)
+    pool.shutdown(wait=False)
+
+    # the one-card references, meanwhile
+    trainer = FinetuneTrainer(cfg, batch, kg, model.cuda())
+    t1 = time.perf_counter()
+    ref = trainer.train_epoch()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t1
+    del trainer, model
+    trainer = CLPretrainer(pcfg, coll, kg, cl_model.cuda())
+    ref_cl = trainer.train_step()
+    del trainer, cl_model
+    torch.cuda.empty_cache()
+    k2_step = k2_launches_per_step(list(ds.kg_edge_indices),
+                                   cfg.model.encoder.hgt.num_layers)
+
+    # (e) a one-rank NCCL group in this process, beside the ranks
+    t_e = time.perf_counter()
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1,
+                         rank=0, device="cuda", backend="nccl")
+    try:
+        reset_launches()  # counts start here
+        t1 = time.perf_counter()
+        nccl_ranks = allpairs.sharded_rank_tensor(
+            make_mesh(("label",)), z, w, chunk_per_device=w.shape[0])
+        nccl = {"ranks": {"s": time.perf_counter() - t1,
+                          "launches": read_launches()}}  # counts end here
+        require(same_ranks(nccl_ranks, ranks_ref),
+                "one-rank NCCL sharded ranks differ from the ranks phase's")
+        del nccl_ranks
+        nccl.update(parallel_steps(work, ds, coll, batch, kg, cfg,
+                                   [(1, 1, None), (1, 1, "dp")]))
+    finally:
+        multihost.shutdown()
+    nccl_err = max([rel_err(nccl[m]["losses"][k], v) for k, v in ref.items()
+                    for m in nccl if m.startswith("finetune_")]
+                   + [rel_err(nccl["stage2_dp"]["loss"], ref_cl)])
+    require(nccl_err <= 1e-4, f"one-rank NCCL losses differ from the "
+            f"one-card step's by {nccl_err} relative")
+    require(nccl["finetune_1x1_kg_replicated"]["launches"][
+        "sorted_segment_sum"] == k2_step
+            and nccl["finetune_1x1_kg_dp"]["launches"][
+                "sorted_segment_sum"] == 0,
+            f"one-rank NCCL K2 launches: {nccl}")
+    nccl_s = time.perf_counter() - t_e
+
+    ranks_res = ranks_job.result()
+    spawned_s = time.perf_counter() - t0
+    for r in ranks_res:
+        require(r.returncode == 0, f"parallel rank {r.rank} exited "
+                f"{r.returncode}:\n{r.stderr[-4000:]}")
+    per_rank = json.loads((work / "results.json").read_text())
+    got = np.load(work / "ranks.npy", mmap_mode="r")
+    require(same_ranks(got, ranks_ref),
+            "2-rank sharded ranks differ from the ranks phase's")
+    del got
+    worst = 0.0
+    for res in per_rank:
+        require(res["ranks"]["launches"] == {"bilinear_scores": 1,
+                                             "sorted_segment_sum": 0},
+                f"sharded ranks launches {res['ranks']['launches']}")
+        for key, run in res.items():
+            if not key.startswith("finetune_"):
+                continue
+            for k, v in ref.items():
+                worst = max(worst, rel_err(run["losses"][k], v))
+            k2 = run["launches"]["sorted_segment_sum"]
+            require(k2 == (0 if key.endswith("_kg_dp") else k2_step),
+                    f"{key}: K2 launched {k2} times on a rank")
+        worst = max(worst, rel_err(res["stage2_dp"]["loss"], ref_cl))
+    require(worst <= 1e-4, f"2-rank losses differ from the one-card step's "
+            f"by {worst} relative")
+
+    cli_res = cli.result()
+    cli_s = time.perf_counter() - t_phase
+    require(cli_res.returncode == 0, f"sharded predict CLI failed:\n"
+            f"{cli_res.stderr[-4000:]}")
+    cli_log = cli_res.stderr.strip().splitlines()[-12:]
+    cli_check = check_sharded_cli(work, ckpts, ens)
+
+
+    counts = {"bilinear_scores": 0, "sorted_segment_sum": 0}
+    for res in per_rank + [nccl]:
+        for key, run in res.items():
+            if isinstance(run, dict) and "launches" in run:
+                for k in counts:
+                    counts[k] += run["launches"][k]
+    emit({"phase": "parallel", "ranks": PARALLEL_RANKS, "backend": "gloo",
+          "shrink": PARALLEL_SHRINK, "drugs": ds.num_drugs,
+          "outcomes": ds.num_labels, "rank_outcomes": int(w.shape[0]),
+          "rank_drugs": int(z.shape[0]), "k2_per_step": k2_step,
+          "per_rank": per_rank, "one_card": {"losses": ref, "s": ref_s,
+                                             "stage2_loss": ref_cl},
+          "max_rel_loss_err": worst, "nccl_one_rank": nccl,
+          "nccl_max_rel_loss_err": nccl_err, "data_s": data_s,
+          "spawned_s": spawned_s, "cli_s": cli_s, "cli": cli_check,
+          "cli_log_tail": cli_log,
+          "nccl_s": nccl_s,
+          "phase_s": time.perf_counter() - t_phase, "launches": counts})
+    shutil.rmtree(work)
+    return counts
+
+
+def check_sharded_cli(work: Path, ckpts, ens: Path) -> dict:
+    """The --sharded CLI's ranks against the unsharded CLI's functions
+    (each seed's rank_tensor at ENSEMBLE_CHUNK, then
+    ensemble_normalized_ranks) on the embeddings that run exported:
+    equal. Against the unsharded CLI's own run in `ens` they are not
+    compared for equality: each CLI's KG pass sums its messages with
+    atomic adds, in an order that changes from run to run, so the two
+    runs' embeddings differ in their last bits and near-tied scores may
+    swap ranks; the line reports those differences."""
+    z = np.load(work / "cli_z.npy")
+    got = np.load(work / "cli_ranks.npy", mmap_mode="r")
+    seeds = []
+    for zs, path in zip(z, ckpts):
+        model, _ = P.model_from_checkpoint(path, device="cuda")
+        seeds.append(R.rank_tensor(zs, P.decoder_weight(model),
+                                   chunk=ENSEMBLE_CHUNK, device="cuda"))
+        del model
+    want = R.ensemble_normalized_ranks(seeds, chunk=ENSEMBLE_CHUNK,
+                                       device="cuda")
+    require(same_ranks(got, want), "the --sharded CLI's ranks differ from "
+            "the unsharded ranks of its own embeddings")
+    other = np.load(ens / "ranks.npy", mmap_mode="r")
+    out = {"equal_to_unsharded_of_same_embeddings": True,
+           "entries_differing_from_unsharded_run": int(
+               sum((got[l] != other[l]).sum() for l in range(len(got)))),
+           "max_abs_diff_vs_unsharded_run": float(max(
+               np.abs(got[l] - other[l]).max() for l in range(len(got))))}
+    if (ens / "z.npy").exists():
+        out["z_max_abs_diff_vs_unsharded_run"] = float(
+            np.abs(z - np.load(ens / "z.npy")).max())
+    return out
+
+
+def parallel_reference(work: Path) -> tuple:
+    """`--parallel`'s own references: a seeded [NUM_DRUGS, D] table and
+    RANK_CHUNK outcomes of a seeded flagship decoder, ranked on the card
+    by rank_tensor; the ensemble's checkpoints and their unsharded ranks
+    through the serving CLI (ranks only). Returns (ranks, z, w, ensemble
+    directory)."""
+    rng = np.random.RandomState(0)
+    z = rng.randn(NUM_DRUGS, D).astype(np.float32)
+    w = rng.randn(RANK_CHUNK, D, D).astype(np.float32) / D
+    w = (w + w.transpose(0, 2, 1)) / 2
+    ranks = R.rank_tensor(z, w, chunk=RANK_CHUNK, device="cuda")
+    ens = work / "ensemble"
+    ens.mkdir(parents=True, exist_ok=True)
+    ckpts, _, _, _ = ensemble_checkpoints(ens)
+    cli_predict.main(ensemble_argv(ckpts)
+                     + ["--export_ranks", str(ens / "ranks.npy"),
+                        "--export_embeddings", str(ens / "z.npy")])
+    return ranks, z, w, ens
 
 
 # ------------------------------------------------------------ training
@@ -3317,6 +3757,8 @@ def main(argv) -> int:
     if pkg.parent != ROOT:
         sys.exit(f"chip_smoke.py must run beside its package; found {pkg}")
     resolve_device("cuda")  # TF32 off: float32 stays float32
+    if argv[:1] == ["--parallel_rank"]:
+        return parallel_rank(Path(argv[1]))
     if argv[:1] == ["--memory_choice"]:
         emit(memory_choice(json.loads(argv[1])))
         return 0
@@ -3357,10 +3799,11 @@ def main(argv) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         print(gpu_line(), flush=True)
         return 0
-    if argv not in ([], ["--kernels"], ["--alt"], ["--aux"]):
+    if argv not in ([], ["--kernels"], ["--alt"], ["--aux"],
+                    ["--parallel"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "--kernels, --pretrain, --stage1, --alt, --aux or "
-                 "--train_memory")
+                 "--kernels, --pretrain, --stage1, --alt, --aux, "
+                 "--parallel or --train_memory")
 
     wall = {}
 
@@ -3389,6 +3832,20 @@ def main(argv) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         print(gpu_line(), flush=True)
         return 0
+    if argv == ["--parallel"]:
+        run("build", phase_build)
+        paths = {"parallel_small": run("parallel_small",
+                                       phase_parallel_small)}
+        refs = run("parallel_reference", parallel_reference,
+                   WORK / "parallel_reference")
+        paths["parallel"] = run("parallel", phase_parallel, *refs)
+        shutil.rmtree(WORK, ignore_errors=True)
+        emit({"phase": "wall", "seconds": wall, "launches_by_path": paths,
+              "budget": {"parallel_s": wall["parallel_small"]
+                         + wall["parallel"],
+                         "parallel_limit_s": PARALLEL_BUDGET_S}})
+        print(gpu_line(), flush=True)
+        return 0
     if argv == ["--alt"]:
         run("build", phase_build)
         alt_phases(run, run("data", make_reference_scale_dataset))
@@ -3409,9 +3866,11 @@ def main(argv) -> int:
     run("small", phase_small)
     serving, model, z, ds, ckpt, emb = run("serving", phase_serving)
     paths = {"serving": serving}
-    paths["ranks"], finish_ranks = run("ranks", phase_ranks, model, z)
+    paths["ranks"], finish_ranks, ranks, rank_w = run("ranks", phase_ranks,
+                                                      model, z)
     w_sym = P.decoder_weight(model).cpu()  # the profile phase's K1 call
     del model
+    paths["parallel_small"] = run("parallel_small", phase_parallel_small)
     # the alternative encoders, the bf16 mode and the reference's
     # checkpoints, on the serving phase's dataset
     alt_paths, k2_bf16 = alt_phases(run, ds)
@@ -3421,6 +3880,11 @@ def main(argv) -> int:
     paths["predict_ensemble"], ensemble_ranks = run(
         "predict_ensemble", phase_predict_ensemble)
     paths["analyze"] = run("analyze", phase_analyze, ensemble_ranks)
+    # the multi-GPU paths at full width: the ranks phase's ranks, the
+    # ensemble's checkpoints and unsharded export
+    paths["parallel"] = run("parallel", phase_parallel, ranks, z, rank_w,
+                            ensemble_ranks.parent)
+    del rank_w
     shutil.rmtree(ensemble_ranks.parent)
     run("train_small", phase_train_small)
     run("pretrain_small", phase_pretrain_small)
@@ -3458,6 +3922,7 @@ def main(argv) -> int:
     stage1_s = wall["stage1_small"] + wall["stage1"]
     alt_s = sum(wall[p] for p in ALT_PHASES)
     aux_s = sum(wall[p] for p in AUX_PHASES)
+    parallel_s = wall["parallel_small"] + wall["parallel"]
     emit({"phase": "wall", "seconds": wall, "main_s": main_s,
           "budget": {"stage2_s": stage2_s, "stage2_limit_s": STAGE2_BUDGET_S,
                      "stage2_met": stage2_s <= STAGE2_BUDGET_S,
@@ -3467,6 +3932,9 @@ def main(argv) -> int:
                      "alt_met": alt_s <= ALT_BUDGET_S,
                      "aux_s": aux_s, "aux_limit_s": AUX_BUDGET_S,
                      "aux_met": aux_s <= AUX_BUDGET_S,
+                     "parallel_s": parallel_s,
+                     "parallel_limit_s": PARALLEL_BUDGET_S,
+                     "parallel_met": parallel_s <= PARALLEL_BUDGET_S,
                      "main_limit_s": MAIN_BUDGET_S,
                      "main_met": main_s <= MAIN_BUDGET_S}})
 

@@ -96,6 +96,18 @@ def apply_overrides(cfg: Any, args: argparse.Namespace) -> Any:
     return cfg
 
 
+def refuse_graph_parallel(enc_cfg) -> None:
+    """The training CLIs run one process: an HGT with `shard_axis` set
+    trains graph-parallel only under `parallel/train_step`
+    (shard_finetune_trainer / shard_cl_pretrainer with kg_shard_axis),
+    which sets the axis itself. Raise before anything is written."""
+    if enc_cfg.hgt.shard_axis is not None:
+        raise NotImplementedError(
+            f"hgt.shard_axis={enc_cfg.hgt.shard_axis!r}: the training "
+            "CLIs run one process; train graph-parallel through "
+            "madrigal_tpu_torch.parallel.train_step (kg_shard_axis)")
+
+
 def setup_platform(args: argparse.Namespace) -> torch.device:
     """The run's device. CUDA turns TF32 off (float32 stays float32)."""
     if args.platform == "tpu":

@@ -22,9 +22,15 @@ Usage:
   python -m madrigal_tpu_torch.cli.predict --checkpoint s1.pt s2.pt \\
       --synthetic --export_ranks ensemble_ranks.npy
   (add --platform cpu to run without a card)
+  torchrun --nproc_per_node=4 -m madrigal_tpu_torch.cli.predict \
+      --sharded --checkpoint model.pt --synthetic --export_ranks ranks.npy
 
-Not ported yet, and raising NotImplementedError: --sharded (multi-GPU
-label sharding).
+--sharded label-shards the rank export over every rank of the process
+group (`parallel/allpairs.sharded_rank_tensor`): each rank ranks its
+outcomes, and rank 0 gathers them and writes every output file. Under
+torchrun the group is torchrun's; run alone it is a one-rank group.
+`--backend` picks the group's backend (nccl on the card, gloo under
+--platform cpu, or gloo for ranks that share one card).
 """
 from __future__ import annotations
 
@@ -65,8 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--finetune_mode", type=str,
                    default="str_random_sample")
     p.add_argument("--sharded", action="store_true",
-                   help="label-shard the rank tensor over all devices "
-                        "(not ported yet)")
+                   help="label-shard the rank tensor over every rank of "
+                        "the process group (torchrun's, or one rank)")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="--sharded: the process group's backend (default "
+                        "nccl on cuda, gloo on cpu)")
     p.add_argument("--ablation", type=str, default=None, metavar="OUT_JSON",
                    help="run the modality-ablation study (fig2 protocol: "
                         "force-mask modality subsets for full-modality "
@@ -95,12 +105,60 @@ def _memmap(path: str, shape) -> np.ndarray:
                                      shape=shape)
 
 
+def _join_group(args) -> None:
+    """--sharded: join torchrun's process group, or make a one-rank one,
+    binding this rank's card before anything is allocated."""
+    from ..parallel.dryrun import free_port
+    from ..parallel.multihost import initialize
+
+    if "RANK" in os.environ:
+        initialize(device=args.platform, backend=args.backend)
+    else:
+        initialize(f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                   device=args.platform, backend=args.backend)
+
+
+def _rank_tensor_into(z, w, out, args, device):
+    """The [L, N, N] ranks of one checkpoint into `out` (rank 0's with
+    --sharded; None elsewhere)."""
+    from ..eval.ranks import rank_tensor
+
+    if args.sharded:
+        from ..parallel.allpairs import sharded_rank_tensor
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(("label",))
+        per_rank = max(1, args.label_chunk // mesh.size())
+        return sharded_rank_tensor(mesh, z, w.cpu().numpy(),
+                                   chunk_per_device=per_rank, out=out)
+    return rank_tensor(z, w, chunk=args.label_chunk, out=out, device=device)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.sharded:
-        raise NotImplementedError(
-            "--sharded is not ported yet (ROADMAP: multi-GPU label "
-            "sharding, parallel/allpairs.py)")
+        _join_group(args)
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+    else:
+        writer = True
+    try:
+        res = _main(args, writer)
+        if args.sharded:  # every rank is done before the files are read
+            from ..parallel.multihost import sync_hosts
+
+            sync_hosts("predict")
+        return res
+    finally:
+        if args.sharded:
+            from ..parallel.multihost import shutdown
+
+            shutdown()
+
+
+def _main(args, writer: bool):
+    """The CLI's work; only the `writer` rank writes files and logs."""
     device = setup_platform(args)
 
     from ..eval.predict import (
@@ -112,9 +170,11 @@ def main(argv=None):
         score_all_pairs,
         score_triples_for_pairs,
     )
-    from ..eval.ranks import ensemble_normalized_ranks, rank_tensor
+    from ..eval.ranks import ensemble_normalized_ranks
 
     logger = _logger()
+    if not writer:
+        logger.setLevel(logging.WARNING)
     ds, coll = load_data(args, device)
     models = [model_from_checkpoint(path, device=device)[0]
               for path in args.checkpoint]
@@ -134,7 +194,7 @@ def main(argv=None):
         logger.info(f"embedded {z.shape[0]} drugs -> {z.shape} on {device}"
                     f" ({path})")
     multi = len(models) > 1
-    if args.export_embeddings:
+    if args.export_embeddings and writer:
         np.save(args.export_embeddings, np.stack(zs) if multi else zs[0])
         logger.info(f"wrote {args.export_embeddings}"
                     + (f" ({len(zs)} seeds stacked)" if multi else ""))
@@ -142,7 +202,7 @@ def main(argv=None):
     L = models[0].decoder.weight.shape[0]
     n = zs[0].shape[0]
 
-    if args.export_scores:
+    if args.export_scores and writer:
         out = _memmap(args.export_scores, (L, n, n))
         if multi:
             ensemble_sigmoid_scores_all_pairs(
@@ -155,33 +215,38 @@ def main(argv=None):
                     + (" (sigmoid-mean ensemble)" if multi else ""))
 
     if args.export_ranks:
-        out = _memmap(args.export_ranks, (L, n, n))
+        out = _memmap(args.export_ranks, (L, n, n)) if writer else None
         if multi:
             seed_paths, seed_maps = [], []
             for i, (model, z) in enumerate(zip(models, zs)):
                 sp = f"{args.export_ranks}.seed{i}.npy"
-                sout = _memmap(sp, (L, n, n))
-                rank_tensor(z, decoder_weight(model), chunk=args.label_chunk,
-                            out=sout, device=device)
-                sout.flush()
-                seed_paths.append(sp)
-                seed_maps.append(np.load(sp, mmap_mode="r"))
-                logger.info(f"seed {i} rank tensor -> {sp}")
-            ensemble_normalized_ranks(seed_maps, out=out,
-                                      chunk=args.label_chunk, device=device)
-            if not args.keep_seed_ranks:
-                del seed_maps
-                for sp in seed_paths:
-                    os.remove(sp)
+                sout = _memmap(sp, (L, n, n)) if writer else None
+                _rank_tensor_into(z, decoder_weight(model), sout, args,
+                                  device)
+                if writer:
+                    sout.flush()
+                    seed_paths.append(sp)
+                    seed_maps.append(np.load(sp, mmap_mode="r"))
+                    logger.info(f"seed {i} rank tensor -> {sp}")
+            if writer:
+                ensemble_normalized_ranks(seed_maps, out=out,
+                                          chunk=args.label_chunk,
+                                          device=device)
+                if not args.keep_seed_ranks:
+                    del seed_maps
+                    for sp in seed_paths:
+                        os.remove(sp)
         else:
-            rank_tensor(zs[0], decoder_weight(models[0]),
-                        chunk=args.label_chunk, out=out, device=device)
-        out.flush()
-        logger.info(f"wrote {args.export_ranks}"
-                    + (" (gmean-of-ranks ensemble, re-ranked)"
-                       if multi else ""))
+            _rank_tensor_into(zs[0], decoder_weight(models[0]), out, args,
+                              device)
+        if writer:
+            out.flush()
+            logger.info(f"wrote {args.export_ranks}"
+                        + (" (gmean-of-ranks ensemble, re-ranked)"
+                           if multi else "")
+                        + (" (label-sharded)" if args.sharded else ""))
 
-    if args.ablation:
+    if args.ablation and writer:
         from ..eval.ablation import modality_ablation_study
 
         # the full-KG batch above serves the study too

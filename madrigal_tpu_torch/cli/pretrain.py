@@ -32,7 +32,13 @@ import torch
 
 from .. import config as config_lib
 from ..config import PretrainConfig
-from .common import add_common_args, apply_overrides, load_data, setup_platform
+from .common import (
+    add_common_args,
+    apply_overrides,
+    load_data,
+    refuse_graph_parallel,
+    setup_platform,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,6 +114,7 @@ def main(argv=None) -> dict:
     if args.save_checkpoints:
         cfg = dataclasses.replace(cfg, save_checkpoints=args.save_checkpoints)
     config_lib.validate(cfg)
+    refuse_graph_parallel(cfg.encoder)
     logger.info(f"config:\n{config_lib.dumps(cfg)}")
 
     kg = coll.kg_batch()

@@ -45,6 +45,7 @@ from .common import (
     add_common_args,
     apply_overrides,
     reference_scale_dataset,
+    refuse_graph_parallel,
     setup_platform,
 )
 
@@ -156,6 +157,7 @@ def build_config(args: argparse.Namespace, num_labels: int) -> TrainConfig:
         remat_forwards=args.remat_forwards or cfg.remat_forwards,
     )
     config_lib.validate(cfg)
+    refuse_graph_parallel(cfg.model.encoder)
     return cfg
 
 

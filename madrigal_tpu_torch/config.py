@@ -109,9 +109,9 @@ class HGTConfig:
     # padded). per_edge_type scope only.
     remat_edge_types: bool = False
     # graph-parallel message passing: when set to a mesh axis name, the
-    # conv expects to run inside shard_map with every edge array sharded
-    # over that axis (node tables + weights replicated) and merges segment
-    # reductions with psum/pmax collectives. See parallel/kg_shard.py.
+    # conv expects the KG batch to hold this rank's share of every edge
+    # type (node tables + weights replicated) and merges its segment
+    # reductions over the axis's process group. See parallel/kg_shard.py.
     shard_axis: Optional[str] = None
     # throughput mode for the edge-level message pipeline: 'bfloat16'
     # halves the HBM traffic of the [E, H, D] gather/scatter stream (the

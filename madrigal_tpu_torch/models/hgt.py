@@ -28,6 +28,14 @@ transforms, the fused k|v gather, the logits product and the weighted
 messages run in bf16; the head-logit sums, the segment softmax and the
 output accumulation stay float32. The gather's backward then hands K2
 bf16 rows. With 'float32' no cast is inserted.
+
+With `shard_axis` (the mesh axis of `parallel/mesh.py`; hgt.py:272-280
+and 355-370 of the JAX package) the conv runs graph-parallel: the KG
+batch holds this rank's share of every edge type's edges
+(`parallel/kg_shard.py`), the segment softmax and sum merge over the
+axis's group, and the source-sorted layouts are not used (they index
+the global edge axis), so the gather's backward is the plain one and K2
+does not run. Node tables and weights are replicated.
 """
 from __future__ import annotations
 
@@ -85,11 +93,13 @@ class HGTConv(nn.Module):
                  out_channels: int, heads: int, group: str = "sum",
                  softmax_scope: str = "per_edge_type",
                  src_sorted_bwd: bool = True, remat_edge_types: bool = False,
-                 compute_dtype: str | None = "float32"):
+                 compute_dtype: str | None = "float32",
+                 shard_axis: str | None = None):
         super().__init__()
         self.cast, self.up = _casters(compute_dtype)
         self.src_sorted_bwd = src_sorted_bwd
         self.remat_edge_types = remat_edge_types
+        self.shard_axis = shard_axis
         F_ = out_channels
         if F_ % heads:
             raise ValueError(f"out_channels {F_} not divisible by {heads}")
@@ -123,6 +133,14 @@ class HGTConv(nn.Module):
         self.out_dims = {nt: (F_ if nt in self.dst_types else in_dims[nt])
                          for nt in self.node_types}
 
+    def _group(self):
+        """The shard axis's process group (None when not sharded)."""
+        if self.shard_axis is None:
+            return None
+        from ..parallel.mesh import axis_group
+
+        return axis_group(self.shard_axis)
+
     def _edge_logits_values(self, g: HeteroKGBatch, et: EdgeType,
                             q: Dict[str, torch.Tensor],
                             k: Dict[str, torch.Tensor],
@@ -141,7 +159,8 @@ class HGTConv(nn.Module):
         # one gather of the fused k|v table (a gather of a concatenation
         # is the concatenation of the gathers)
         kv = _src_gather(torch.cat([k_s, v_s], dim=-1), g, ek,
-                         self.src_sorted_bwd)  # [E, 2F]
+                         self.src_sorted_bwd
+                         and self.shard_axis is None)  # [E, 2F]
         prod = cast(q[dst_t])[dst] * kv[:, :self.F]  # [E, F]
         logits = (self.up(prod).reshape(-1, self.H, self.D).sum(-1)
                   * getattr(self, f"p_rel__{ek}")[None, :]
@@ -149,9 +168,11 @@ class HGTConv(nn.Module):
         return logits, kv[:, self.F:]
 
     def _aggregate(self, logits, vals, dst, mask, n_dst):
-        alpha = segment_softmax(logits, dst, n_dst, mask=mask)  # [E, H]
+        group = self._group()
+        alpha = segment_softmax(logits, dst, n_dst, mask=mask,
+                                group=group)  # [E, H]
         msg = vals * self.cast(alpha).repeat_interleave(self.D, dim=-1)
-        return segment_sum(self.up(msg), dst, n_dst)
+        return segment_sum(self.up(msg), dst, n_dst, group)
 
     def forward(self, g: HeteroKGBatch, x_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -226,10 +247,6 @@ class HGTEncoder(nn.Module):
                  node_dims: Dict[str, int], edge_types: Sequence[EdgeType],
                  drug_only_head: bool = False):
         super().__init__()
-        if cfg.shard_axis is not None:
-            raise NotImplementedError(
-                "hgt.shard_axis: graph-parallel HGT belongs to the "
-                "multi-GPU port (ROADMAP)")
         self.num_layers = cfg.num_layers
         dims = dict(node_dims)
         for i in range(cfg.num_layers):
@@ -237,7 +254,8 @@ class HGTEncoder(nn.Module):
                            group=cfg.group, softmax_scope=cfg.softmax_scope,
                            src_sorted_bwd=cfg.src_sorted_bwd,
                            remat_edge_types=cfg.remat_edge_types,
-                           compute_dtype=cfg.compute_dtype)
+                           compute_dtype=cfg.compute_dtype,
+                           shard_axis=cfg.shard_axis)
             self.add_module(f"conv_{i}", conv)
             dims = conv.out_dims
         self.head_types = (("drug",) if drug_only_head

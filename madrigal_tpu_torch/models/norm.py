@@ -12,6 +12,11 @@ variants differ only there:
   * `flax_rule=True` (the MLP-family norms, flax `nn.BatchNorm`):
     statistics over every row, and the biased variance in the running
     update. torch.nn.BatchNorm1d would update with the unbiased one.
+
+With `group` set (a process group; `parallel/train_step.py` sets it on
+the norms that see a rank's shard of a data-parallel batch) train mode
+takes the statistics over every rank's rows, as the JAX package's
+global-batch program does: the sums and counts are all-reduced.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ class MaskedBatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.flax_rule = flax_rule
+        self.group = None  # process group of a data-parallel batch
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         if affine:
@@ -42,7 +48,10 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.reshape(-1, x.shape[-1])
-            if mask is None or self.flax_rule:
+            if self.group is not None:
+                mean, var, count = self._global_moments(
+                    xf, None if mask is None or self.flax_rule else mask)
+            elif mask is None or self.flax_rule:
                 count = xf.new_tensor(float(xf.shape[0]))
                 mean = xf.mean(0)
                 var = ((xf - mean) ** 2).mean(0)
@@ -61,3 +70,24 @@ class MaskedBatchNorm(nn.Module):
         if self.weight is not None:
             y = y * self.weight + self.bias
         return y
+
+    def _global_moments(self, xf: torch.Tensor,
+                        mask: Optional[torch.Tensor]):
+        """(mean, biased var, count) over every rank's rows of the
+        group (the rows `mask` keeps, when given)."""
+        from ..parallel.collectives import all_reduce_, all_reduce_sum
+
+        w = None if mask is None else mask.reshape(-1, 1).to(xf.dtype)
+        local = (xf.new_tensor(float(xf.shape[0])) if w is None
+                 else w.sum())
+        count = all_reduce_(local.detach().clone(), group=self.group)
+        if w is not None:
+            count = count.clamp_min(1.0)
+
+        def total(rows):
+            return all_reduce_sum((rows if w is None else rows * w).sum(0),
+                                  self.group)
+
+        mean = total(xf) / count
+        var = total((xf - mean) ** 2) / count
+        return mean, var, count

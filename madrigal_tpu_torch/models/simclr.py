@@ -32,6 +32,9 @@ class SimCLRModel(nn.Module):
                  raw_encoder_output: bool = False):
         super().__init__()
         self.temperature = temperature
+        # data parallel: the process group whose ranks each hold a shard
+        # of the batch; InfoNCE then scores every rank's rows
+        self.gather_group = None
         self.shared_predictor = shared_predictor
         self.raw_encoder_output = raw_encoder_output
         self.base_encoder = MadrigalEncoder(enc_cfg, kg_node_dims,
@@ -77,5 +80,10 @@ class SimCLRModel(nn.Module):
             aug1, aug2 = self.predictor(z1), self.predictor(z2)
         else:
             aug1, aug2 = self.predictor_1(z1), self.predictor_2(z2)
+        if self.gather_group is not None:
+            from ..parallel.collectives import gather_rows
+
+            aug1 = gather_rows(aug1, self.gather_group)
+            aug2 = gather_rows(aug2, self.gather_group)
         return aug1, aug2, info_nce(aug1, aug2, self.temperature,
                                     too_hard_neg_mask)

@@ -6,6 +6,13 @@ outside [0, num_segments) are dropped: they land in one spare row that
 is cut off. Segments with no members come out 0 from the sums and -inf
 from `segment_max`; `segment_softmax` maps a -inf maximum to 0 so empty
 and fully masked segments give zero weights, not NaN.
+
+`group=` (a process group) is the JAX package's `axis_name`: each rank
+holds a shard of the rows (the graph-parallel HGT's edges), and the
+reductions merge over the group (`parallel/collectives.py`):
+`segment_sum` all-reduces SUM (differentiably), `segment_max` MAX (it
+carries no gradient), and `segment_softmax` takes the global maximum,
+then the global denominator.
 """
 from __future__ import annotations
 
@@ -21,10 +28,14 @@ def _safe_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, group=None) -> torch.Tensor:
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     out.index_add_(0, _safe_ids(segment_ids, num_segments), data)
-    return out[:num_segments]
+    if group is None:
+        return out[:num_segments]
+    from ..parallel.collectives import all_reduce_sum
+
+    return all_reduce_sum(out[:num_segments], group)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -37,25 +48,32 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Per-segment maximum; empty segments come back as -inf."""
+                num_segments: int, group=None) -> torch.Tensor:
+    """Per-segment maximum; empty segments come back as -inf. With a
+    group, `data` must carry no gradient (the softmax detaches it)."""
     ids = _safe_ids(segment_ids, num_segments)
     out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]),
                         float("-inf"))
     idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     out.scatter_reduce_(0, idx, data, reduce="amax", include_self=True)
-    return out[:num_segments]
+    if group is None:
+        return out[:num_segments]
+    from ..parallel.collectives import all_reduce_max
+
+    return all_reduce_max(out[:num_segments], group)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """Numerically stable softmax of [E, ...] logits within segments;
-    masked (False) rows get zero weight."""
+    masked (False) rows get zero weight. With a group, the segments span
+    every rank's rows."""
     bshape = (-1,) + (1,) * (logits.dim() - 1)
     if mask is not None:
         logits = logits.masked_fill(~mask.reshape(bshape), float("-inf"))
-    seg_max = segment_max(logits.detach(), segment_ids, num_segments)
+    seg_max = segment_max(logits.detach(), segment_ids, num_segments, group)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                           torch.zeros_like(seg_max))
     ids = _safe_ids(segment_ids, num_segments)
@@ -64,7 +82,8 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     exp = torch.exp(logits - seg_max[ids])
     if mask is not None:
         exp = exp.masked_fill(~mask.reshape(bshape), 0.0)
-    denom = segment_sum(exp, segment_ids, num_segments).clamp_min(1e-16)
+    denom = segment_sum(exp, segment_ids, num_segments,
+                        group).clamp_min(1e-16)
     denom = torch.cat([denom, denom.new_ones((1,) + denom.shape[1:])])
     return exp / denom[ids]
 

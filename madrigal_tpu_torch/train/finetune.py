@@ -19,6 +19,11 @@ dropout and no batch statistics, and a gradient is linear in its
 cotangent. It holds one forward's activations at a time, and the KG pass
 runs forward and backward once per step, so kernel K2 runs once per step
 for each (HGT layer, edge type) whose messages reach the drug table.
+
+`parallel/train_step.shard_finetune_trainer` shards a trainer through
+three seams left None here: `_kg_table_fn` (the graph-parallel KG pass),
+`loss_group` (the masked BCE's global mean) and `_reduce_grads` (the
+gradients' all-reduce before the optimizer step).
 """
 from __future__ import annotations
 
@@ -137,6 +142,10 @@ class FinetuneTrainer:
         self.w_directed = tb.mask & (head_g < tail_g)
         self.w_all = (self.w_directed if self.masker.edges_directed_only()
                       else tb.mask)
+        # the sharding seams (parallel/train_step.py)
+        self._kg_table_fn = None
+        self.loss_group = None
+        self._reduce_grads = None
 
     def _forward_loss(self, masks_head, masks_tail, weights, table):
         tb = self.train_batch
@@ -146,7 +155,8 @@ class FinetuneTrainer:
             head, tail, None, tb.head_idx, tb.tail_idx, tb.labels,
             kg_drug_table=table, chunk_labels=self.chunk_labels,
             label_chunk=self.label_chunk)
-        return masked_bce(out, tb.pos_neg, weights, self.cfg.loss_readout)
+        return masked_bce(out, tb.pos_neg, weights, self.cfg.loss_readout,
+                          group=self.loss_group)
 
     def train_epoch(self) -> Dict[str, float]:
         """One step over the full batch; returns the forwards' losses and
@@ -165,23 +175,36 @@ class FinetuneTrainer:
 
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        table = self.model.encoder.kg_drug_table(self.kg)
+        table = (self.model.encoder.kg_drug_table(self.kg)
+                 if self._kg_table_fn is None else self._kg_table_fn(self.kg))
         shared = table.detach().requires_grad_()
         losses = {}
         for name, h, t, w in plan:
             loss = self._forward_loss(h, t, w, shared)
-            loss.backward()
-            losses[name] = float(loss.detach())
+            if loss.requires_grad:  # a shard may hold none of the triples
+                loss.backward()
+            losses[name] = loss.detach()
         if shared.grad is not None:
             table.backward(shared.grad)
+        elif self._kg_table_fn is not None:
+            # the graph-parallel backward is collective: every rank runs it
+            table.backward(torch.zeros_like(table))
         for p in self.params:
             # a parameter the loss does not reach gets a zero gradient, so
             # AdamW still decays it and advances its moments, as optax does
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self._reduce_grads is not None:
+            self._reduce_grads()
         self.optimizer.step()
         self.scheduler.step()
         self.epoch += 1
+        values = torch.stack(list(losses.values()))
+        if self.loss_group is not None:
+            from ..parallel.collectives import all_reduce_
+
+            all_reduce_(values, group=self.loss_group)
+        losses = dict(zip(losses, values.tolist()))
         if len(plan) > 1:
             losses["total"] = sum(losses.values())
         return losses

@@ -15,13 +15,23 @@ import torch.nn.functional as F
 
 
 def masked_bce(logits: torch.Tensor, targets: torch.Tensor,
-               weights: torch.Tensor, readout: str = "mean") -> torch.Tensor:
-    """Stable BCE-with-logits over rows weighted by `weights` (0/1 mask)."""
+               weights: torch.Tensor, readout: str = "mean",
+               group=None) -> torch.Tensor:
+    """Stable BCE-with-logits over rows weighted by `weights` (0/1 mask).
+
+    With a process group each rank holds a shard of the rows: the mean
+    divides this rank's sum by the weight sum of every rank's rows, so
+    the ranks' losses add up to the loss of all rows."""
     per = F.binary_cross_entropy_with_logits(
         logits, targets.to(logits.dtype), reduction="none")
     w = weights.to(logits.dtype)
     if readout == "mean":
-        return (per * w).sum() / w.sum().clamp_min(1.0)
+        den = w.sum()
+        if group is not None:
+            from ..parallel.collectives import all_reduce_
+
+            den = all_reduce_(den.detach().clone(), group=group)
+        return (per * w).sum() / den.clamp_min(1.0)
     return (per * w).sum()
 
 

@@ -175,13 +175,19 @@ class LARS(torch.optim.Optimizer):
     trust ratio q = trust_coefficient * |p| / |g + wd * p| (1 where
     either norm is 0); other parameters take dp = g. Heavy-ball momentum
     mu = momentum * mu + dp, and p -= lr * mu, lr the group's rate at this
-    step."""
+    step.
+
+    `shard_groups` maps a parameter that is one shard of a larger tensor
+    (the label-sharded decoder weight, `parallel/train_step.py`) to the
+    process group holding its shards: its two norms are then those of
+    the whole tensor, so the trust ratio is the unsharded one."""
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0,
                  momentum: float = 0.9, trust_coefficient: float = 0.001):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
                                       momentum=momentum,
                                       trust_coefficient=trust_coefficient))
+        self.shard_groups = {}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -193,7 +199,15 @@ class LARS(torch.optim.Optimizer):
                 dp = p.grad
                 if p.ndim > 1:
                     dp = dp + wd * p
-                    p_norm, g_norm = p.norm(), dp.norm()
+                    pg = self.shard_groups.get(p)
+                    if pg is None:
+                        p_norm, g_norm = p.norm(), dp.norm()
+                    else:
+                        from ..parallel.collectives import all_reduce_
+
+                        sq = torch.stack([p.square().sum(),
+                                          dp.square().sum()])
+                        p_norm, g_norm = all_reduce_(sq, group=pg).sqrt()
                     q = torch.where(
                         (p_norm > 0) & (g_norm > 0),
                         group["trust_coefficient"] * p_norm / g_norm,

@@ -17,6 +17,12 @@ the host sends the ids and two masks. Otherwise each step's minibatch is
 collated on the host. `train_steps` builds step t+1's host payload on a
 prefetch thread while the device runs step t (`data/pipeline.py`), with
 the losses of as many `train_step` calls.
+
+`parallel/train_step.shard_cl_pretrainer` splits the batch over 'dp'
+through three seams left None here: `row_slice` (the rank's rows of each
+step's draws: every rank draws the whole batch, so the host streams stay
+the single device's), `_kg_table_fn` (the graph-parallel KG pass) and
+`_reduce_grads` (the gradients' all-reduce before the optimizer step).
 """
 from __future__ import annotations
 
@@ -104,6 +110,10 @@ class CLPretrainer:
             self.optimizer, half_cycle_cosine_schedule(
                 1.0, cfg.warmup_epochs, cfg.pretrain_num_epochs))
         self.step = 0
+        # the sharding seams (parallel/train_step.py)
+        self.row_slice = None
+        self._kg_table_fn = None
+        self._reduce_grads = None
 
     def _sample_masks(self, drugs):
         return sample_pretrain_masks(
@@ -117,6 +127,8 @@ class CLPretrainer:
                                   replace=False)
                if len(self.drug_ids) > self.batch_size else self.drug_ids)
         m1, m2 = self._sample_masks(ids)
+        if self.row_slice is not None:
+            ids, m1, m2 = (a[self.row_slice] for a in (ids, m1, m2))
         if self.full_batch is not None:
             return ids.astype(np.int32), m1, m2
         return self.host_collator.drug_batch(ids), m1, m2
@@ -127,11 +139,15 @@ class CLPretrainer:
         batch_or_ids, m1, m2 = payload
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        table = (None if self._kg_table_fn is None
+                 else self._kg_table_fn(self.kg))
         if self.full_batch is not None:
             _, _, (_, _, loss) = self.model(self.full_batch, self.kg, m1, m2,
+                                            kg_drug_table=table,
                                             ids=batch_or_ids)
         else:
-            _, _, (_, _, loss) = self.model(batch_or_ids, self.kg, m1, m2)
+            _, _, (_, _, loss) = self.model(batch_or_ids, self.kg, m1, m2,
+                                            kg_drug_table=table)
         loss.backward()
         for p in self.params:
             # a parameter the loss does not reach (the fusion transformer
@@ -139,6 +155,8 @@ class CLPretrainer:
             # still decayed and its moments advance, as in optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self._reduce_grads is not None:
+            self._reduce_grads()
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1

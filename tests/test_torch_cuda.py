@@ -367,3 +367,68 @@ def test_bf16_hgt_step_k2_on_bf16_rows_matches_plain(cuda, monkeypatch):
     for k, ref in grads["plain"].items():
         torch.testing.assert_close(grads["k2"][k], ref, rtol=0,
                                    atol=2.0 ** -8 * float(ref.abs().max()))
+
+
+TWO_RANKS = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from madrigal_tpu_torch.data.collate import DDICollator
+from madrigal_tpu_torch.data.synthetic import make_dataset
+from madrigal_tpu_torch.eval.ranks import rank_tensor
+from madrigal_tpu_torch.ops import segment_sorted
+from madrigal_tpu_torch.parallel import dryrun as D
+from madrigal_tpu_torch.parallel.allpairs import sharded_rank_tensor
+from madrigal_tpu_torch.parallel.mesh import make_mesh
+from madrigal_tpu_torch.parallel.multihost import initialize, shutdown
+from madrigal_tpu_torch.parallel.train_step import make_train_mesh
+
+dev = initialize(device="cuda", backend="gloo")
+rng = np.random.RandomState(0)
+z = rng.randn(300, 128).astype(np.float32)
+w = rng.randn(6, 128, 128).astype(np.float32) / 128
+w = (w + w.transpose(0, 2, 1)) / 2
+got = sharded_rank_tensor(make_mesh(("label",)), z, w, chunk_per_device=2)
+out = {}
+if got is not None:
+    out["ranks_equal"] = bool(np.array_equal(
+        got, rank_tensor(z, w, chunk=3, device="cuda")))
+ds = make_dataset(num_drugs=12, num_labels=8, num_edges=24, seed=0)
+batch, kg = DDICollator(ds, split="train", device=dev, kg_src_sort=True)()
+cfg = D.three_way_config()
+ref, _ = D.finetune_step(cfg, batch, kg, ds, dev)
+segment_sorted.sorted_segment_sum.launches = 0
+for label in (1, 2):
+    for axis in (None, "dp"):
+        got, _ = D.finetune_step(cfg, batch, kg, ds, dev,
+                                 make_train_mesh(label_dim=label), axis)
+        out[f"{label}_{axis}"] = max(abs(got[k] - ref[k]) / abs(ref[k])
+                                     for k in ref)
+out["k2"] = segment_sorted.sorted_segment_sum.launches
+if dist.get_rank() == 0:
+    json.dump(out, open(sys.argv[1], "w"))
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_match_one_card(cuda, tmp_path):
+    """Two ranks sharing the card (gloo: NCCL refuses a shared card): the
+    label-sharded ranks equal rank_tensor's on the card exactly, and a
+    narrow three-forward finetune step on meshes 2 x 1 and 1 x 2, the KG
+    replicated and edge-sharded, has the one-card step's losses within
+    1e-4 relative; K2 runs in the replicated KG's backward only."""
+    import json
+    import sys
+
+    from madrigal_tpu_torch.parallel.dryrun import launch, require_ok
+
+    path = tmp_path / "out.json"
+    require_ok(launch([sys.executable, "-c", TWO_RANKS, str(path)], 2,
+                      timeout=600))
+    out = json.loads(path.read_text())
+    assert out["ranks_equal"]
+    for key in ("1_None", "1_dp", "2_None", "2_dp"):
+        assert out[key] <= 1e-4, (key, out)
+    assert out["k2"] > 0

@@ -257,18 +257,39 @@ def test_only_training_builds_the_source_sorted_layout():
     ["--sharded", "--ablation", "a.json"], ["--sharded"],
     ["--sharded", "CKPT2"], ["--platform", "tpu"]])
 def test_unported_flags_raise(served, extra, tmp_path):
-    """--sharded raises whatever it is combined with, before any output
-    is written."""
-    argv = ["--checkpoint", served["path"]]
-    if "CKPT2" in extra:
-        argv.append(served["path"])
-    argv += [str(tmp_path / a) if a.endswith((".npy", ".json")) else a
-             for a in extra if a != "CKPT2"]
-    if "--platform" not in extra:
-        argv += ["--platform", "cpu"]
-    with pytest.raises(NotImplementedError):
-        t_cli.main(argv + DATA_FLAGS)
-    assert not os.listdir(tmp_path)
+    """--platform tpu raises before any output is written. --sharded,
+    which raised the same way until the multi-GPU slice, now runs,
+    whatever it is combined with: run without torchrun it is a one-rank
+    group, and it writes and returns exactly what the run without it
+    does (tests/test_torch_parallel.py runs it on 2 ranks)."""
+    def run(out):
+        out.mkdir()
+        argv = ["--checkpoint", served["path"]]
+        if "CKPT2" in extra:
+            argv.append(served["path"])
+        argv += [str(out / a) if a.endswith((".npy", ".json")) else a
+                 for a in extra if a != "CKPT2"]
+        if "--platform" not in extra:
+            argv += ["--platform", "cpu"]
+        return t_cli.main(argv + DATA_FLAGS)
+
+    if "--sharded" not in extra:
+        with pytest.raises(NotImplementedError):
+            run(tmp_path / "out")
+        assert not os.listdir(tmp_path / "out")
+        return
+    got = run(tmp_path / "sharded")
+    extra = [a for a in extra if a != "--sharded"]
+    want = run(tmp_path / "plain")
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert sorted(os.listdir(tmp_path / "sharded")) == names
+    for name in names:
+        a, b = (tmp_path / d / name for d in ("sharded", "plain"))
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(a), np.load(b))
+        else:
+            assert json.loads(a.read_text()) == json.loads(b.read_text())
 
 
 @pytest.fixture(scope="module")
@@ -525,7 +546,10 @@ def test_port_imports_no_jax_pandas_or_reference_package():
               "cli.chemcpa_sweep", "models.lm_decoder", "train.lm_decoder",
               "cli.train_lm", "analysis", "analysis.ddi_queries",
               "analysis.profiles", "analysis.pretrain_embeds",
-              "cli.analyze", "utils.profiling"):
+              "cli.analyze", "utils.profiling", "parallel",
+              "parallel.mesh", "parallel.multihost", "parallel.collectives",
+              "parallel.kg_shard", "parallel.allpairs",
+              "parallel.train_step", "parallel.dryrun"):
         assert "madrigal_tpu_torch." + m in loaded, m
 
 
