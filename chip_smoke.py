@@ -38,19 +38,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
      with nvcc for sm_90a, the two compiles started together;
   3. kernels: K1 and K2 against their plain versions at ragged shapes
      and at the shapes the paths give them (K2: every edge type the
-     full-scale training run and the stage-1 kg run reduce; K2 over one
-     training step's 15 launches and one stage-1 kg step's 34),
-     timed with CUDA events
-     beside the plain version, one PyTorch call computing the same
-     function (`library_ms`, timed only here) and the card's bound;
+     full-scale training run and the stage-1 kg run reduce in the source
+     gathers' backward, and the sums K2 carries besides, k2_sum_checks:
+     the 128-wide messages f32 and bf16 and the 4-wide softmax
+     denominators at ppi, the molecule batch's sums and readout, a hub
+     segment and a Zipf-like draw; the source gathers of one training
+     step, 15 launches, and of one stage-1 kg step, 34), timed with CUDA
+     events beside the plain version, one PyTorch call computing the same
+     function (`library_ms`, timed only here), `index_add_` (the sums the
+     port ran before K2 carried them) and the card's bound;
   4. small: the serving path on a small dataset on the card against the
      same model on the CPU;
   5. serving: the serving path at full width, with every kernel's launch
-     count set to 0 just before it and read just after; then the bf16
-     throughput export (score_all_pairs with compute_dtype=bfloat16) on
-     the same model, with its own launches and its chunks checked;
+     count set to 0 just before it and read just after; a second KG pass
+     and drug encoding in this process, whose embeddings must equal the
+     CLI's bit for bit; then the bf16 throughput export (score_all_pairs
+     with compute_dtype=bfloat16) on the same model, with its own
+     launches and its chunks checked;
   6. ranks: rank_tensor on the serving model for RANK_CHUNK outcomes at
-     all 6,843 drugs (counts set to 0 before, read after); K1's scores
+     all 6,843 drugs (counts set to 0 before, read after), and again on
+     the second KG pass's embeddings, equal; K1's scores
      and the per-outcome rank timed apart; every outcome's layout; two
      outcomes against a numpy float32 form of the JAX package's compiled
      formula, exactly, and against the float64 offline path within
@@ -105,10 +112,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
      ranks; a shard_finetune_trainer step at the reference scale /
      PARALLEL_SHRINK on meshes 2 x 1 and 1 x 2, the KG replicated and
      edge-sharded, and a dp-2 shard_cl_pretrainer step, within 1e-4
-     relative of the one-card steps; `cli.predict --sharded` through
-     torchrun on phase 7's checkpoints; the ranks and steps again as a
-     one-rank NCCL group; each part's seconds, each rank's launches and
-     peak memory (counts set to 0 before each part, read after);
+     relative of the one-card steps; the one-card step's successor run
+     twice from the same state, equal bit for bit (repeat_step);
+     `cli.predict --sharded` through torchrun on phase 7's checkpoints,
+     its ranks and embeddings equal to phase 7's unsharded run's; the
+     ranks and steps again as a one-rank NCCL group; each part's
+     seconds, each rank's launches and peak memory (counts set to 0
+     before each part, read after);
   8. train_small: 3 training steps at flagship widths (dropout 0) on a
      small dataset, on the card against the CPU from the same weights and
      masks, under AdamW (with the Evaluator's val metrics after them),
@@ -183,6 +193,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
  16. all_train: the training CLI with `--all_train` on reference-format
      data at the reference scale / ALL_TRAIN_SHRINK for one epoch (counts
      set to 0 before, read after).
+
+Every path's K2 launches are held to the count its encoder passes need
+(K2Expect: each KG or molecule encoder's forward sums, and the transposes
+of its gathers where a gradient reaches it, derived from the code); the
+paths that run no encoder launch none.
 
 Standard output: one JSON line per phase, a line of each phase's wall
 seconds (with the stage-2 phases' sum, the stage-1 phases' sum, the
@@ -283,11 +298,17 @@ from madrigal_tpu_torch.device import resolve_device
 from madrigal_tpu_torch.eval import predict as P
 from madrigal_tpu_torch.eval import ranks as R
 from madrigal_tpu_torch.eval.evaluate import Evaluator
+from madrigal_tpu_torch.data.kg import edge_key
+from madrigal_tpu_torch.models.chemcpa import ChemCPAEncoder
 from madrigal_tpu_torch.models.encoder import (
     MadrigalEncoder,
     build_model,
     init_weights,
 )
+from madrigal_tpu_torch.models.gat import GATEncoder
+from madrigal_tpu_torch.models.gin import GINEncoder
+from madrigal_tpu_torch.models.hgt import HGTEncoder
+from madrigal_tpu_torch.models.kg_alt import HANEncoder, RGCNEncoder
 from madrigal_tpu_torch.ops import _build, bilinear, segment_sorted
 from madrigal_tpu_torch.ops import gather as gather_lib
 from madrigal_tpu_torch.train import checkpoint as ckpt_lib
@@ -408,6 +429,15 @@ MAIN_BUDGET_S = 520.0
 # smallest edge type it reduces on the training path and at the largest
 K2_WIDTH = 256
 K2_TIMED = (("drug", "indication", "disease"), ("protein", "ppi", "protein"))
+# K2 on every sum of the encoders: the HGT's messages and the HAN's and
+# RGCN's (hidden 128), the softmax denominators (the flagship's 4 heads,
+# and the GAT's and HAN's), the GIN's and GAT's molecule sums (128)
+K2_MSG_WIDTH, K2_HEADS = 128, 4
+# the skewed-degree checks: one segment with this share of ppi's rows, and
+# a Zipf-like draw of exponent K2_ZIPF_A
+K2_HUB_SHARE, K2_ZIPF_A = 0.25, 1.1
+# the molecule batch of the serving path's drug encoding (embed_all_drugs)
+K2_MOL_DRUGS = 1024
 
 
 def emit(obj) -> None:
@@ -629,33 +659,54 @@ def k2_bound(e_real: int, n: int, w: int, dtype: torch.dtype):
 
 
 def k2_inputs(e_real: int, e_pad: int, n: int, dtype: torch.dtype,
-              seed: int):
-    """[e_pad, K2_WIDTH] rows grouped by a uniform random segment id, as
-    the synthetic KG's sources are, rows past e_real trailing padding."""
+              seed: int, width: int = K2_WIDTH, draw: str = "uniform"):
+    """[e_pad, width] rows grouped by a random segment id, rows past
+    e_real trailing padding. `draw`: 'uniform' (as the synthetic KG's
+    endpoints are; one segment left empty), 'hub' (one segment holds
+    K2_HUB_SHARE of the rows, the rest uniform) or 'zipf' (segment k drawn
+    with weight k^-K2_ZIPF_A, as skewed degrees are). The hub and Zipf
+    rows hold small integers, whose f32 sums are exact in any order."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    ids = torch.randint(0, n, (e_real,), generator=g, device="cuda").sort()[0]
-    ids[ids == n // 2] = n // 2 + 1  # one empty segment
+    if draw == "zipf":
+        w = torch.arange(1, n + 1, device="cuda",
+                         dtype=torch.float64) ** -K2_ZIPF_A
+        ids = torch.multinomial(w, e_real, replacement=True, generator=g)
+    else:
+        ids = torch.randint(0, n, (e_real,), generator=g, device="cuda")
+        if draw == "hub":
+            ids[:int(e_real * K2_HUB_SHARE)] = n // 3
+        else:
+            ids[ids == n // 2] = n // 2 + 1  # one empty segment
+    ids = ids.sort()[0]
     starts = torch.searchsorted(
         ids, torch.arange(n + 1, device="cuda")).to(torch.int32)
-    data = torch.randn(e_pad, K2_WIDTH, generator=g, device="cuda")
+    if draw == "uniform":
+        data = torch.randn(e_pad, width, generator=g, device="cuda")
+    else:
+        data = torch.randint(-8, 9, (e_pad, width), generator=g,
+                             device="cuda").float()
     return data.to(dtype), starts
 
 
-def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0):
-    """k2_rows_check on k2_inputs' rows."""
-    data, starts = k2_inputs(e_real, e_pad, n, dtype, seed)
-    row = k2_rows_check(data, starts, n, iters)
+def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0, width=K2_WIDTH,
+             draw="uniform"):
+    """k2_rows_check on k2_inputs' rows (hub and Zipf rows exactly)."""
+    data, starts = k2_inputs(e_real, e_pad, n, dtype, seed, width, draw)
+    row = k2_rows_check(data, starts, n, iters,
+                        rtol=1e-5 if draw == "uniform" else 0.0)
     del data, starts
     torch.cuda.empty_cache()
     return row
 
 
-def k2_rows_check(data, starts, n: int, iters: int = 0) -> dict:
+def k2_rows_check(data, starts, n: int, iters: int = 0,
+                  rtol: float = 1e-5) -> dict:
     """K2 on `data` [E, W] under `starts` against its plain version, within
-    1e-5 of max|plain| (the same f32 sums in another order; bf16 rows
-    widen to f32 exactly); two launches give the same bits. With iters,
-    also time the kernel, the plain version and the one-call PyTorch
-    yardstick, beside the bytes bound."""
+    rtol of max|plain| (1e-5: the same f32 sums in another order; bf16
+    rows widen to f32 exactly); two launches give the same bits. With
+    iters, also time the kernel, the plain version, the one-call PyTorch
+    yardstick and `index_add_` (the sums the port ran before K2 carried
+    them, on the rows widened to f32), beside the bytes bound."""
     got = segment_sorted.sorted_segment_sum(data, starts, n)
     again = segment_sorted.sorted_segment_sum(data, starts, n)
     ref = segment_sorted.sorted_segment_sum_plain(data, starts, n)
@@ -663,14 +714,22 @@ def k2_rows_check(data, starts, n: int, iters: int = 0) -> dict:
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     e_real = int(starts[-1])
+    sizes = (starts[1:] - starts[:-1]).max().item() if n else 0
     row = {"E": data.shape[0], "E_real": e_real, "N": n, "W": data.shape[1],
            "in": DTYPE_NAME[data.dtype], "iters": iters, "max_abs_err": err,
-           "max_abs_plain": scale, "tol": 1e-5 * scale,
+           "max_abs_plain": scale, "tol": rtol * scale,
+           "largest_segment": int(sizes),
            "repeatable": bool(torch.equal(got, again))}
-    require(np.isfinite(err) and err <= 1e-5 * scale and row["repeatable"],
+    require(np.isfinite(err) and err <= rtol * scale and row["repeatable"],
             f"K2 disagrees with its plain version: {row}")
     del got, again, ref
     if iters:
+        seg = segment_sorted.row_segments(starts, data.shape[0])
+        wide = data.float()
+        out = torch.zeros((n + 1, data.shape[1]), device=data.device)
+        row["index_add_ms"] = cuda_ms(
+            lambda: out.zero_().index_add_(0, seg, wide), iters)
+        del seg, wide, out
         row["ms"] = cuda_ms(
             lambda: segment_sorted.sorted_segment_sum(data, starts, n), iters)
         row["plain_ms"] = cuda_ms(
@@ -755,12 +814,65 @@ def phase_k2_kernels():
     timed = [r for r in checks if "ms" in r]
     require(timed[-1]["edge_type"] == "__".join(K2_TIMED[-1]),
             "the last timed K2 row is not the training run's largest")
+    checks = k2_sum_checks() + checks  # the kernels line's main row last
     for row in checks:
         emit({"phase": "kernels", "kernel": "sorted_segment_sum", **row})
     emit({"phase": "kernels", "kernel": "sorted_segment_sum",
-          "per_step": k2_step(TRAIN_SHRINK),
-          "per_step_stage1": k2_step(TRAIN_SHRINK, link_split=True)})
+          "src_gather_per_step": k2_step(TRAIN_SHRINK),
+          "src_gather_per_step_stage1": k2_step(TRAIN_SHRINK,
+                                                link_split=True)})
     return checks
+
+
+def k2_sum_checks() -> list:
+    """K2 at the shapes of its uses beside the source gather's, each held
+    to its plain version and timed: at the full-scale KG's largest edge
+    type (ppi, dst-sorted), the messages of the HGT, HAN and RGCN (128
+    wide, f32; bf16 for the bf16 HGT) and the softmax denominators (one
+    column a head); at the smallest (drug-indication) the messages; over
+    the serving path's molecule batch (K2_MOL_DRUGS drugs), the GIN's and
+    GAT's message sums and readout (128 wide) and the GAT's
+    denominators; and the skewed cases at ppi's size: one hub segment
+    holding K2_HUB_SHARE of the rows, 128 and 4 wide, and a Zipf-like
+    draw, 128 wide."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    nodes, edges = reference_scale_kg_sizes()
+    rows = []
+    for et in (("protein", "ppi", "protein"), ("drug", "indication",
+                                               "disease")):
+        e = edges[et]
+        e_pad = -(-e // PAD_MULTIPLE) * PAD_MULTIPLE
+        uses = [("messages", K2_MSG_WIDTH, f32, "uniform")]
+        if et[1] == "ppi":
+            uses += [("messages_bf16", K2_MSG_WIDTH, bf16, "uniform"),
+                     ("denominators", K2_HEADS, f32, "uniform"),
+                     ("hub_messages", K2_MSG_WIDTH, f32, "hub"),
+                     ("hub_denominators", K2_HEADS, f32, "hub"),
+                     ("zipf_messages", K2_MSG_WIDTH, f32, "zipf")]
+        for use, w, dt, draw in uses:
+            # the skewed cases take tens of ms a launch: fewer repeats
+            rows.append({"use": use, "edge_type": "__".join(et),
+                         "draw": draw, **k2_check(
+                             e, e_pad, nodes[et[2]], dt, seed=11,
+                             iters=50 if draw == "uniform" else 5,
+                             width=w, draw=draw)})
+    mols = pack_molecules(make_dataset(num_drugs=K2_MOL_DRUGS,
+                                       seed=0).molecules, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n_pad = mols.num_nodes_padded
+    for use, n_rows, w, starts, n in (
+            ("mol_messages", mols.num_edges_padded, K2_MSG_WIDTH,
+             mols.edge_dst_starts, n_pad),
+            ("mol_denominators", mols.num_edges_padded, K2_HEADS,
+             mols.edge_dst_starts, n_pad),
+            ("mol_readout", n_pad, K2_MSG_WIDTH, mols.node_graph_starts,
+             mols.num_graphs)):
+        data = torch.randn(n_rows, w, generator=g, device="cuda")
+        rows.append({"use": use, "drugs": K2_MOL_DRUGS,
+                     **k2_rows_check(data, starts, n, iters=50)})
+    del mols
+    torch.cuda.empty_cache()
+    return rows
 
 
 def k2_step(shrink: int, link_split: bool = False) -> dict:
@@ -845,15 +957,25 @@ def phase_serving(seed: int = 0):
             "the reference-scale dataset changed size")
     kg_edges = int(sum(e.shape[1] for e in ds.kg_edge_indices.values()))
     t_data = time.perf_counter() - t0
-    # what the source-sorted layout of the training backward adds to the
-    # KG batch build (host argsorts, and the copies to the card)
+    # the KG batch build with the serving layouts (sorted by destination)
+    # and with the source-sorted one of the training backward added (host
+    # argsorts, and the copies to the card); the first is kept for the
+    # second KG pass below
     t_kg = {}
-    for layout, src_sort in (("plain", False), ("src_sort", True)):
+    for layout, src_sort in (("sorted", False), ("src_sort", True)):
         t0 = time.perf_counter()
-        build_kg_batch(ds.kg_node_feats, ds.kg_edge_indices, ds.kg_drug_ids,
-                       device="cuda", src_sort=src_sort)
+        kg = build_kg_batch(ds.kg_node_feats, ds.kg_edge_indices,
+                            ds.kg_drug_ids, device="cuda", src_sort=src_sort)
         torch.cuda.synchronize()
         t_kg[layout] = time.perf_counter() - t0
+        if src_sort:
+            del kg
+        else:
+            kg_sorted = kg
+    # K2's weak case is a destination with many edges: the synthetic KG's
+    # largest in-degree per edge type
+    in_degree = {"__".join(et): int(np.bincount(ei[1]).max())
+                 for et, ei in ds.kg_edge_indices.items() if ei.shape[1]}
     save_checkpoint(ckpt, random_model(flagship_config(NUM_LABELS), ds, seed),
                     flagship_config(NUM_LABELS))
 
@@ -873,9 +995,20 @@ def phase_serving(seed: int = 0):
     scores = P.score_all_pairs(model, z[:SERVE_HEADS], z,
                                label_chunk=LABEL_CHUNK)
     counts = read_launches()  # counts end here
+    k2_want = require_k2(counts, "serving")
     launches = counts["bilinear_scores"]
     t_main = time.perf_counter() - t0
     phase_s = dict(times.seconds)
+    # a second KG pass and drug encoding in this process, on the same
+    # weights and data: the same bits as the CLI's
+    t0 = time.perf_counter()
+    z_again = P.embed_all_drugs(
+        model, DDICollator(ds, split="train", device="cuda"), kg_sorted)
+    t_again = time.perf_counter() - t0
+    del kg_sorted
+    require(np.array_equal(z_again, z),
+            f"two KG passes and drug encodings differ by "
+            f"{float(np.abs(z_again - z).max())}")
 
     require(z.shape == (NUM_DRUGS, D) and np.isfinite(z).all(),
             f"embeddings: shape {z.shape} or not finite")
@@ -913,13 +1046,15 @@ def phase_serving(seed: int = 0):
     emit({"phase": "serving", "drugs": NUM_DRUGS, "outcomes": NUM_LABELS,
           "kg_edges": kg_edges, "label_chunk": LABEL_CHUNK,
           "head_drugs": SERVE_HEADS, "launches": counts,
+          "k2_expected": k2_want, "max_in_degree": in_degree,
           "chunk_max_abs_err": chunk_err, "triple_max_abs_err": triple_err,
+          "second_pass": {"equal_bits": True, "s": t_again},
           "data_build_s": t_data, "kg_build_s": t_kg, "cli_s": t_cli,
           "main_path_s": t_main,
           "phase_s": phase_s, "bf16_export": bf16_export,
           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # the checkpoint and the embeddings stay for the lm_decoder phase
-    return counts, model, z, ds, ckpt, emb
+    return counts, model, z, ds, ckpt, emb, z_again
 
 
 def serve_bf16_export(model, z, zh, zt, w_sym, n_chunks: int) -> dict:
@@ -984,10 +1119,11 @@ def check_rank_layout(r: torch.Tensor, levels: torch.Tensor,
             "a rank triangle is not a permutation of {1..m}/m")
 
 
-def phase_ranks(model, z: np.ndarray):
+def phase_ranks(model, z: np.ndarray, z_again: np.ndarray):
     """rank_tensor on the serving model for RANK_CHUNK outcomes at every
     drug (one K1 launch, then one rank a outcome), into host memory, and
-    every outcome's layout on the card. The references for two outcomes
+    every outcome's layout on the card; the same rank tensor from the
+    serving phase's second KG pass (`z_again`), equal. The references for two outcomes
     and a tie case (numpy float32 in threads, the float64 offline path in
     its process pool) start here and run on beside the next phases.
     Returns the path's launch counts and the function that waits for the
@@ -1008,6 +1144,12 @@ def phase_ranks(model, z: np.ndarray):
     require(counts == {"bilinear_scores": 1, "sorted_segment_sum": 0},
             f"rank path launches {counts}, expected K1 once")
     require(ranks.shape == (RANK_CHUNK, n, n), f"ranks {ranks.shape}")
+    t0 = time.perf_counter()
+    again = R.rank_tensor(z_again, w_sym, chunk=RANK_CHUNK, device="cuda")
+    t_again = time.perf_counter() - t0
+    require(same_ranks(again, ranks), "the rank tensors of two KG passes "
+            "differ")
+    del again
 
     # K1's scores for the chunk and one outcome's rank, timed apart
     zc = torch.from_numpy(z).cuda()
@@ -1064,6 +1206,7 @@ def phase_ranks(model, z: np.ndarray):
               "of_outcomes": NUM_LABELS,
               "host_gb": RANK_CHUNK * n * n * 4 / 1e9,
               "launches": counts, "rank_tensor_s": t_main,
+              "second_pass_equal": True, "second_pass_s": t_again,
               "k1_chunk_ms": k1_ms, "rank_ms_per_outcome": rank_ms,
               "checked_exact_outcomes": list(picked),
               "max_abs_err_vs_offline_f64": off_err,
@@ -1126,10 +1269,10 @@ def phase_predict_ensemble() -> dict:
     t_cli = time.perf_counter() - t0
     counts = read_launches()  # counts end here
     chunks = -(-L // ENSEMBLE_CHUNK)
-    require(counts == {"bilinear_scores": 4 * chunks,
-                       "sorted_segment_sum": 0},
+    require(counts["bilinear_scores"] == 4 * chunks,
             f"ensemble launches {counts}, expected 2 seeds x {chunks} "
             "chunks for the ranks and as many for the scores")
+    k2_want = require_k2(counts, "predict_ensemble")
     left = sorted(p.name for p in work.glob("ranks.npy.seed*"))
     require(not left, f"seed files {left} left without --keep_seed_ranks")
 
@@ -1187,7 +1330,7 @@ def phase_predict_ensemble() -> dict:
     emit({"phase": "predict_ensemble", "shrink": ENSEMBLE_SHRINK,
           "drugs": n, "outcomes": L, "seeds": 2,
           "label_chunk": ENSEMBLE_CHUNK, "launches": counts, "cli_s": t_cli,
-          "k1_max_abs_err_vs_plain": k1_err,
+          "k2_expected": k2_want, "k1_max_abs_err_vs_plain": k1_err,
           "scores_max_abs_err_vs_plain": score_err,
           "triple_probs": probs.tolist(), "triple_max_abs_err": triple_err,
           "reference_s": time.perf_counter() - t0})
@@ -1242,10 +1385,11 @@ def parallel_steps(work: Path, ds, coll, batch, kg, cfg, meshes) -> dict:
         t0 = time.perf_counter()
         losses = trainer.train_epoch()
         torch.cuda.synchronize()
-        out[f"finetune_{dp}x{label}_kg_{axis or 'replicated'}"] = {
-            "losses": losses, "s": time.perf_counter() - t0,
-            "setup_s": setup_s,
-            "launches": read_launches()}  # counts end here
+        name = f"finetune_{dp}x{label}_kg_{axis or 'replicated'}"
+        out[name] = {"losses": losses, "s": time.perf_counter() - t0,
+                     "setup_s": setup_s,
+                     "launches": read_launches()}  # counts end here
+        out[name]["k2_expected"] = require_k2(out[name]["launches"], name)
         del trainer, model
     t0 = time.perf_counter()
     pcfg = parallel_pretrain_config(cfg.model.encoder)
@@ -1261,9 +1405,51 @@ def parallel_steps(work: Path, ds, coll, batch, kg, cfg, meshes) -> dict:
     out["stage2_dp"] = {"loss": loss, "s": time.perf_counter() - t0,
                         "setup_s": setup_s,
                         "launches": read_launches()}  # counts end here
+    out["stage2_dp"]["k2_expected"] = require_k2(
+        out["stage2_dp"]["launches"], "stage2_dp")
     del trainer, model
     torch.cuda.empty_cache()
     return out
+
+
+def repeat_step(trainer) -> dict:
+    """The trainer's next step run twice from the same state: weights and
+    statistics, optimizer and schedule state, the mask sampler and the
+    generators' states. The two give the same losses, parameters, buffers
+    and optimizer state, bit for bit. Returns each run's seconds and the
+    tensors compared."""
+    state = {"model": copy.deepcopy(trainer.model.state_dict()),
+             "optimizer": copy.deepcopy(trainer.optimizer.state_dict()),
+             "scheduler": copy.deepcopy(trainer.scheduler.state_dict()),
+             "masker": copy.deepcopy(trainer.masker), "epoch": trainer.epoch,
+             "cpu_rng": torch.get_rng_state(),
+             "cuda_rng": torch.cuda.get_rng_state()}
+    runs, seconds = [], []
+    for _ in range(2):
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+        trainer.scheduler.load_state_dict(state["scheduler"])
+        trainer.masker = copy.deepcopy(state["masker"])
+        trainer.epoch = state["epoch"]
+        torch.set_rng_state(state["cpu_rng"])
+        torch.cuda.set_rng_state(state["cuda_rng"])
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        opt = trainer.optimizer.state_dict()["state"]
+        runs.append((losses, {k: v.clone() for k, v in
+                              trainer.model.state_dict().items()},
+                     [t.clone() for st in opt.values() for t in st.values()
+                      if isinstance(t, torch.Tensor)]))
+    (l1, m1, o1), (l2, m2, o2) = runs
+    differ = ([k for k in m1 if not torch.equal(m1[k], m2[k])]
+              + [f"optimizer state {i}" for i, (a, b) in enumerate(zip(o1, o2))
+                 if not torch.equal(a, b)])
+    require(l1 == l2 and not differ and len(o1) == len(o2) > 0,
+            f"a training step run twice from the same state differs: "
+            f"losses {l1} and {l2}; {differ[:8]}")
+    return {"s": seconds, "losses": l1, "tensors": len(m1) + len(o1)}
 
 
 def parallel_rank(work: Path) -> int:
@@ -1342,19 +1528,19 @@ def phase_parallel_small() -> dict:
         for per_rank in path["launches"]:
             for k in counts:
                 counts[k] += per_rank[k]
-    # K1 scores each block of path 2's outcomes on both ranks; K2 runs in
-    # the replicated KG's backward (paths 1, 7) and nowhere under graph
-    # parallelism (paths 4-6)
+    # K1 scores each block of path 2's outcomes on both ranks; K2 carries
+    # the sums of every path that runs an encoder, the graph-parallel ones
+    # (4-6) on each rank's share (the exact counts a step are checked in
+    # the parallel phase), and none of the rank path's
     k1 = -(-dryrun.NUM_LABELS
            // (PARALLEL_RANKS * dryrun.RANK_CHUNK_PER_DEVICE))
     require(all(r["bilinear_scores"] == k1
                 for r in line["paths"]["2_ranks"]["launches"])
-            and all(r["sorted_segment_sum"] > 0
-                    for r in line["paths"]["1_finetune"]["launches"])
             and all(r["sorted_segment_sum"] == 0
-                    for p in ("4_kg_table", "5_three_way",
-                              "6_cl_host_collate")
-                    for r in line["paths"][p]["launches"]),
+                    for r in line["paths"]["2_ranks"]["launches"])
+            and all(r["sorted_segment_sum"] > 0
+                    for p, path in line["paths"].items() if p != "2_ranks"
+                    for r in path["launches"]),
             f"parallel dryrun launches: {line['paths']}")
     emit({"phase": "parallel_small", "ranks": line["nproc"],
           "backend": line["backend"],
@@ -1439,19 +1625,19 @@ def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
         timeout=300, cwd=ROOT)
     pool.shutdown(wait=False)
 
-    # the one-card references, meanwhile
+    # the one-card references, meanwhile, and the next step run twice
+    # from the same state
     trainer = FinetuneTrainer(cfg, batch, kg, model.cuda())
     t1 = time.perf_counter()
     ref = trainer.train_epoch()
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t1
+    repeat = repeat_step(trainer)
     del trainer, model
     trainer = CLPretrainer(pcfg, coll, kg, cl_model.cuda())
     ref_cl = trainer.train_step()
     del trainer, cl_model
     torch.cuda.empty_cache()
-    k2_step = k2_launches_per_step(list(ds.kg_edge_indices),
-                                   cfg.model.encoder.hgt.num_layers)
 
     # (e) a one-rank NCCL group in this process, beside the ranks
     t_e = time.perf_counter()
@@ -1476,11 +1662,6 @@ def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
                    + [rel_err(nccl["stage2_dp"]["loss"], ref_cl)])
     require(nccl_err <= 1e-4, f"one-rank NCCL losses differ from the "
             f"one-card step's by {nccl_err} relative")
-    require(nccl["finetune_1x1_kg_replicated"]["launches"][
-        "sorted_segment_sum"] == k2_step
-            and nccl["finetune_1x1_kg_dp"]["launches"][
-                "sorted_segment_sum"] == 0,
-            f"one-rank NCCL K2 launches: {nccl}")
     nccl_s = time.perf_counter() - t_e
 
     ranks_res = ranks_job.result()
@@ -1503,9 +1684,6 @@ def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
                 continue
             for k, v in ref.items():
                 worst = max(worst, rel_err(run["losses"][k], v))
-            k2 = run["launches"]["sorted_segment_sum"]
-            require(k2 == (0 if key.endswith("_kg_dp") else k2_step),
-                    f"{key}: K2 launched {k2} times on a rank")
         worst = max(worst, rel_err(res["stage2_dp"]["loss"], ref_cl))
     require(worst <= 1e-4, f"2-rank losses differ from the one-card step's "
             f"by {worst} relative")
@@ -1527,9 +1705,10 @@ def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
     emit({"phase": "parallel", "ranks": PARALLEL_RANKS, "backend": "gloo",
           "shrink": PARALLEL_SHRINK, "drugs": ds.num_drugs,
           "outcomes": ds.num_labels, "rank_outcomes": int(w.shape[0]),
-          "rank_drugs": int(z.shape[0]), "k2_per_step": k2_step,
+          "rank_drugs": int(z.shape[0]),
           "per_rank": per_rank, "one_card": {"losses": ref, "s": ref_s,
-                                             "stage2_loss": ref_cl},
+                                             "stage2_loss": ref_cl,
+                                             "repeated_step": repeat},
           "max_rel_loss_err": worst, "nccl_one_rank": nccl,
           "nccl_max_rel_loss_err": nccl_err, "data_s": data_s,
           "spawned_s": spawned_s, "cli_s": cli_s, "cli": cli_check,
@@ -1543,12 +1722,11 @@ def phase_parallel(ranks_ref: np.ndarray, z: np.ndarray, w: np.ndarray,
 def check_sharded_cli(work: Path, ckpts, ens: Path) -> dict:
     """The --sharded CLI's ranks against the unsharded CLI's functions
     (each seed's rank_tensor at ENSEMBLE_CHUNK, then
-    ensemble_normalized_ranks) on the embeddings that run exported:
-    equal. Against the unsharded CLI's own run in `ens` they are not
-    compared for equality: each CLI's KG pass sums its messages with
-    atomic adds, in an order that changes from run to run, so the two
-    runs' embeddings differ in their last bits and near-tied scores may
-    swap ranks; the line reports those differences."""
+    ensemble_normalized_ranks) on the embeddings that run exported, and
+    against the unsharded CLI's own run in `ens`: equal, and its
+    embeddings equal that run's. Each run's KG pass sums on K2 in a fixed
+    order, so the two runs' embeddings have the same bits, and so have
+    their ranks."""
     z = np.load(work / "cli_z.npy")
     got = np.load(work / "cli_ranks.npy", mmap_mode="r")
     seeds = []
@@ -1566,10 +1744,13 @@ def check_sharded_cli(work: Path, ckpts, ens: Path) -> dict:
            "entries_differing_from_unsharded_run": int(
                sum((got[l] != other[l]).sum() for l in range(len(got)))),
            "max_abs_diff_vs_unsharded_run": float(max(
-               np.abs(got[l] - other[l]).max() for l in range(len(got))))}
-    if (ens / "z.npy").exists():
-        out["z_max_abs_diff_vs_unsharded_run"] = float(
-            np.abs(z - np.load(ens / "z.npy")).max())
+               np.abs(got[l] - other[l]).max() for l in range(len(got)))),
+           "z_max_abs_diff_vs_unsharded_run": float(
+               np.abs(z - np.load(ens / "z.npy")).max())}
+    require(out["entries_differing_from_unsharded_run"] == 0
+            and out["z_max_abs_diff_vs_unsharded_run"] == 0.0,
+            f"the --sharded CLI's export differs from the unsharded run's: "
+            f"{out}")
     return out
 
 
@@ -1594,14 +1775,195 @@ def parallel_reference(work: Path) -> tuple:
 
 
 # ------------------------------------------------------------ training
+def hgt_k2(mod, g) -> tuple:
+    """K2's launches in one HGTEncoder forward over `g`, and the function
+    of the node types whose outputs get a gradient giving those of its
+    backward, as the code runs them (`models/hgt.py`, `ops/segment.py`,
+    `ops/gather.py`). Forward: per conv, the softmax denominators and the
+    message sums, per edge type (per_edge_type scope) or per destination
+    type (global). Backward, per conv from the last, for the edge types
+    whose destination type reaches the loss: the transposes of the
+    destination gather, of the source gather (when the batch has the
+    source layout and src_sorted_bwd is on) and, per edge type or per
+    destination type, of the denominators' gather; with the remat, the
+    recompute's two forward sums."""
+    convs = [getattr(mod, f"conv_{i}") for i in range(mod.num_layers)]
+    require(bool(g.edge_dst_starts), "an HGT ran on a KG batch without "
+            "its destination layouts: its sums would not run on K2")
+    fwd = 0
+    for conv in convs:
+        if conv.softmax_scope == "global":
+            require(conv.edge_types == g.metadata.edge_types
+                    and bool(g.dst_type_starts),
+                    "a global-scope HGT ran without its per-type layouts")
+            fwd += 2 * len({et[2] for et in conv.edge_types})
+        else:
+            fwd += 2 * len(conv.edge_types)
+    src = set(g.edge_src_order)
+
+    def bwd(grad_types) -> int:
+        need, n = set(grad_types), 0
+        for conv in reversed(convs):
+            live = [et for et in conv.edge_types if et[2] in need]
+            for et in live:
+                n += 1 + int(conv.src_sorted_bwd and edge_key(et) in src)
+                if conv.softmax_scope != "global":
+                    n += 1 + 2 * int(conv.remat_edge_types)
+            if conv.softmax_scope == "global":
+                n += len({et[2] for et in live})
+            need |= {et[0] for et in live}
+        return n
+
+    return fwd, bwd
+
+
+def han_k2(mod, g) -> tuple:
+    """As hgt_k2 for an HANEncoder: forward, per conv and edge type, the
+    denominators and the message sums; backward, per live edge type, the
+    transposes of the destination gather, the denominators' gather and
+    (with the source layout) the source gather. A node type feeds the
+    conv below it through the edge types it is a source or a destination
+    of."""
+    convs = [getattr(mod, f"conv_{i}") for i in range(mod.num_layers)]
+    require(bool(g.edge_dst_starts), "an HAN ran without its layouts")
+    src = set(g.edge_src_order)
+
+    def bwd(grad_types) -> int:
+        need, n = set(grad_types), 0
+        for conv in reversed(convs):
+            live = [et for et in conv.edge_types if et[2] in need]
+            n += sum(2 + int(edge_key(et) in src) for et in live)
+            need = {t for et in live for t in (et[0], et[2])}
+        return n
+
+    return sum(2 * len(c.edge_types) for c in convs), bwd
+
+
+def rgcn_k2(mod, g) -> tuple:
+    """An RGCNEncoder: one sum a (layer, relation); backward, the source
+    gathers' transposes (with the source layout) of every layer above
+    the first, whose input is the node features."""
+    require(bool(g.edge_dst_starts), "an RGCN ran without its layouts")
+    rel = len(g.metadata.edge_types)
+    n_src = len(g.edge_src_order)
+    return mod.num_layers * rel, lambda _: (mod.num_layers - 1) * n_src
+
+
+def mol_k2(mod, g) -> tuple:
+    """A GINEncoder (per layer one message sum, the readout's sum; the
+    backward, the source gather's transpose of every layer above the
+    first) or a GATEncoder (per layer the denominators and the message
+    sums, the readout; the backward, per layer the transposes of the
+    source, destination and denominators' gathers)."""
+    require(g.edge_dst_starts is not None and g.node_graph_starts
+            is not None, "a molecule encoder ran without its layouts")
+    L = mod.num_layers
+    if isinstance(mod, GATEncoder):
+        return 2 * L + 1, lambda _: 3 * L
+    return L + 1, lambda _: L - 1
+
+
+def chemcpa_k2(mod, g, return_basal=False) -> tuple:
+    """A ChemCPAEncoder: no sum forward; backward, the transposes of its
+    covariate and (with use_drugs) drug embedding gathers, where those
+    weights train and the latent is not the basal one."""
+    if return_basal:
+        return 0, lambda _: 0
+    tables = [mod.cov_embedding.weight] + (
+        [mod.drug_embeddings.weight] if mod.cfg.use_drugs else [])
+    return 0, lambda _: sum(int(t.requires_grad) for t in tables)
+
+
+K2_FORMULAS = {HGTEncoder: hgt_k2, HANEncoder: han_k2,
+               RGCNEncoder: rgcn_k2, GINEncoder: mol_k2, GATEncoder: mol_k2,
+               ChemCPAEncoder: chemcpa_k2}
+
+
+class K2Expect:
+    """The K2 launches that the encoder passes between reset_launches()
+    and read_launches() need, by the formulas above: a global module
+    forward hook takes each KG or molecule encoder's forward count when it
+    runs, and hooks on its outputs collect the ones a gradient reaches;
+    their backward count is taken at read_launches(). What the hooks
+    observe is which encoders ran and where the gradients went; how many
+    launches each needs is derived from the code."""
+
+    def __init__(self):
+        self.handle, self.records = None, []
+
+    def start(self) -> None:
+        self.stop()
+        self.records = []
+        self.handle = torch.nn.modules.module.register_module_forward_hook(
+            self._hook, with_kwargs=True)
+
+    def stop(self) -> None:
+        if self.handle is not None:
+            self.handle.remove()
+            self.handle = None
+
+    def _hook(self, mod, args, kwargs, out) -> None:
+        formula = K2_FORMULAS.get(type(mod))
+        if formula is None:
+            return
+        if formula is chemcpa_k2:
+            fwd, bwd = formula(mod, None, kwargs.get(
+                "return_basal", len(args) > 4 and args[4]))
+        else:
+            fwd, bwd = formula(mod, args[0] if args else kwargs["g"])
+        rec = [type(mod).__name__, fwd, bwd, set()]
+        self.records.append(rec)
+        items = (out.items() if isinstance(out, dict)
+                 else enumerate(out) if isinstance(out, (tuple, list))
+                 else [(0, out)])
+        for key, t in items:
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                t.register_hook(lambda grad, key=key, rec=rec:
+                                rec[3].add(key))
+
+    def launches(self) -> dict:
+        """{'forward', 'backward', 'total', 'passes': {encoder: count}}."""
+        fwd = sum(r[1] for r in self.records)
+        bwd = sum(r[2](r[3]) for r in self.records if r[3])
+        passes = {}
+        for r in self.records:
+            passes[r[0]] = passes.get(r[0], 0) + 1
+        return {"forward": fwd, "backward": bwd, "total": fwd + bwd,
+                "passes": passes}
+
+
+K2_EXPECT = K2Expect()
+
+
 def reset_launches() -> None:
+    """Every kernel's launch count to 0, and K2's expected count with it."""
     bilinear.bilinear_scores.launches = 0
     segment_sorted.sorted_segment_sum.launches = 0
+    K2_EXPECT.start()
 
 
 def read_launches() -> dict:
+    """The launch counts since reset_launches(); K2's expected count stops
+    with them (k2_expected)."""
+    K2_EXPECT.stop()
     return {"bilinear_scores": bilinear.bilinear_scores.launches,
             "sorted_segment_sum": segment_sorted.sorted_segment_sum.launches}
+
+
+def k2_expected() -> dict:
+    """K2's launches that the encoder passes between the last
+    reset_launches() and read_launches() need (K2Expect.launches)."""
+    return K2_EXPECT.launches()
+
+
+def require_k2(counts: dict, path: str) -> dict:
+    """The path's K2 launches equal the count its encoder passes need, and
+    are more than 0; returns that count's parts."""
+    want = k2_expected()
+    require(counts["sorted_segment_sum"] == want["total"] > 0,
+            f"{path}: K2 launched {counts['sorted_segment_sum']} times, its "
+            f"encoder passes need {want}")
+    return want
 
 
 def k2_live_edge_types(edge_types, num_layers: int) -> list:
@@ -1615,12 +1977,6 @@ def k2_live_edge_types(edge_types, num_layers: int) -> list:
         out.append(live)
         need |= {et[0] for et in live}
     return out
-
-
-def k2_launches_per_step(edge_types, num_layers: int) -> int:
-    """K2's launches in one training step: one per (HGT layer, live edge
-    type); autograd runs no backward for the others."""
-    return sum(map(len, k2_live_edge_types(edge_types, num_layers)))
 
 
 def config_overrides(cfg) -> list:
@@ -1661,7 +2017,7 @@ def phase_train_small():
         for dev in ("cpu", "cuda"):
             runs[f"{dev}_{opt}"] = (dev, True, OPTIM_STEPS, opt_cfg,
                                     narrow_model)
-    losses, grads, launches, evals, seconds = {}, {}, {}, {}, {}
+    losses, grads, launches, evals, seconds, k2_want = {}, {}, {}, {}, {}, {}
     for name, (dev, src_sort, steps, run_cfg, start) in runs.items():
         t0 = time.perf_counter()
         batch, kg = DDICollator(ds, split="train", seed=0, device=dev,
@@ -1677,6 +2033,9 @@ def phase_train_small():
                                for k, p in trainer.model.named_parameters()
                                if "kg_encoder" in k}
         launches[name] = read_launches()
+        if dev == "cuda":
+            k2_want[name] = require_k2(launches[name],
+                                       f"train_small ({name})")
         if name in ("cpu", "cuda"):  # the Evaluator's val sweep after 3
             val = DDICollator(ds, split="val", seed=0, device=dev)(
                 splits["val"], build_kg=False)[0]
@@ -1684,15 +2043,13 @@ def phase_train_small():
             evals[name] = (ev.evaluate_ft(val, kg, "val"), ev.best_metrics)
         seconds[name] = time.perf_counter() - t0
     n_types = len(ds.kg_edge_indices)
-    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
-                                    cfg.model.encoder.hgt.num_layers)
-    require(narrow.model.encoder.hgt.num_layers
-            == cfg.model.encoder.hgt.num_layers
-            and all(launches[n]["sorted_segment_sum"] == runs[n][2] * per_step
-                    for n in ("cuda", "cuda_radam", "cuda_lars"))
-            and launches["cuda_plain_bwd"]["sorted_segment_sum"] == 0,
-            f"train_small: K2 launches {launches}, expected {per_step} "
-            "per step")
+    # the plain source gathers' backward takes no K2: one launch less a
+    # step for each (layer, edge type) reaching the drugs
+    plain = (launches["cuda"]["sorted_segment_sum"] // runs["cuda"][2]
+             - launches["cuda_plain_bwd"]["sorted_segment_sum"])
+    require(plain == sum(map(len, k2_live_edge_types(
+        list(ds.kg_edge_indices), cfg.model.encoder.hgt.num_layers))),
+            f"train_small: the plain backward ran {plain} fewer K2 launches")
     loss_err = {}
     for opt, (cpu, card) in {"adamw": ("cpu", "cuda"),
                              "radam": ("cpu_radam", "cuda_radam"),
@@ -1737,7 +2094,7 @@ def phase_train_small():
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
           "val_key_cuda": key_g, "val_key_cpu": key_c,
           "max_abs_val_metric_err_vs_cpu": metric_err,
-          "launches": launches, "run_s": seconds})
+          "launches": launches, "k2_expected": k2_want, "run_s": seconds})
 
 
 def train_argv(memory_flags, epochs: int, save_dir: Path,
@@ -1779,12 +2136,7 @@ def phase_training():
     check_k2_shapes(rec.results["make_reference_scale_dataset"][0]
                     .kg_edge_indices, SYNTHETIC_TRAIN_SHRINK, "training")
 
-    hgt = flagship_config(NUM_LABELS).model.encoder.hgt
-    want = k2_launches_per_step(list(reference_scale_kg_sizes()[1]),
-                                hgt.num_layers) * TRAIN_EPOCHS
-    require(counts["sorted_segment_sum"] == want,
-            f"K2 launched {counts['sorted_segment_sum']} times in the "
-            f"training run, expected {want}")
+    k2_want = require_k2(counts, "training")
     require(len(res["losses"]) == TRAIN_EPOCHS
             and all(np.isfinite(v) for l in res["losses"]
                     for v in l.values()),
@@ -1809,6 +2161,7 @@ def phase_training():
               SYNTHETIC_TRAIN_SHRINK)["num_drugs"],
           "outcomes": model.decoder.weight.shape[0],
           "epochs": TRAIN_EPOCHS, "launches": counts,
+          "k2_expected": k2_want,
           "losses": res["losses"], "epoch_s": res["epoch_seconds"],
           "evaluate_interval": TRAIN_EVAL_INTERVAL,
           "eval_s": res["eval_seconds"], "val_key_auprc": res["eval_keys"],
@@ -1891,6 +2244,7 @@ def phase_stage1_small():
     ds = make_dataset(seed=3)
     runs = stage1_small_runs(ds)
     losses, grads, launches, seconds, frozen = {}, {}, {}, {}, {}
+    k2_want = {}
     for name, (build, step) in runs.items():
         for dev in ("cpu", "cuda"):
             if name == "kg_plain_bwd" and dev == "cpu":
@@ -1909,18 +2263,19 @@ def phase_stage1_small():
                 losses[key] += [step(trainer, dev)
                                 for _ in range(STAGE1_SMALL_STEPS - 1)]
             launches[key] = read_launches()
+            if dev == "cuda" and name in ("str", "kg", "kg_plain_bwd", "tx"):
+                k2_want[key] = require_k2(launches[key],
+                                          f"stage1_small ({name})")
             seconds[key] = time.perf_counter() - t0
             if name == "tx":
                 k = "drug_embeddings.weight"
                 frozen[key] = torch.equal(
                     trainer.model.state_dict()[k].cpu(), before[k])
     enc = narrow_config(NUM_LABELS).model.encoder
-    per_step = enc.hgt.num_layers * len(ds.kg_edge_indices)
-    want = {k: (STAGE1_SMALL_STEPS * per_step if k == "cuda_kg" else 0)
-            for k in launches}
-    require({k: c["sorted_segment_sum"] for k, c in launches.items()} == want
-            and all(c["bilinear_scores"] == 0 for c in launches.values()),
-            f"stage1_small: launches {launches}, expected K2 {want}")
+    require(all(c["bilinear_scores"] == 0 for k, c in launches.items())
+            and all(launches[f"{d}_cv"]["sorted_segment_sum"] == 0
+                    for d in ("cpu", "cuda")),
+            f"stage1_small: launches {launches}")
     require(all(frozen.values()), f"stage1_small: the frozen drug table "
             f"moved ({frozen})")
     loss_err = {}
@@ -1951,7 +2306,7 @@ def phase_stage1_small():
                      "hgt": enc.hgt.hidden_dim},
           "losses": losses, "max_rel_loss_err_vs_cpu": loss_err,
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
-          "k2_launches_per_step": per_step, "launches": launches,
+          "launches": launches, "k2_expected": k2_want,
           "run_s": seconds})
 
 
@@ -2023,7 +2378,6 @@ def phase_stage1() -> dict:
     if save_dir.exists():
         shutil.rmtree(save_dir)
     paths, counts, lines = {}, {}, {}
-    hgt = flagship_config(NUM_LABELS).model.encoder.hgt
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2042,12 +2396,9 @@ def phase_stage1() -> dict:
     ds = rec.results["make_reference_scale_dataset"][0]
     queries, labels, message_edges = rec.results["make_link_split"][0]
     check_k2_shapes(message_edges, TRAIN_SHRINK, "stage1", link_split=True)
-    per_step = hgt.num_layers * len(message_edges)
-    require(counts["kg"] == {"bilinear_scores": 0,
-                             "sorted_segment_sum":
-                             per_step * STAGE1_KG_EPOCHS},
-            f"stage1 (kg): launches {counts['kg']}, expected {per_step} of "
-            "K2 a step")
+    require(counts["kg"]["bilinear_scores"] == 0,
+            f"stage1 (kg): launches {counts['kg']}")
+    k2_kg = require_k2(counts["kg"], "stage1 (kg)")
     step_s = rec.seconds["train_step"]
     losses = [r["kg_loss"] for r in read_metrics(save_dir, "kg")]
     require(len(losses) == STAGE1_KG_EPOCHS and np.isfinite(losses).all(),
@@ -2059,8 +2410,7 @@ def phase_stage1() -> dict:
         "message_edges": int(sum(e.shape[1]
                                  for e in message_edges.values())),
         "queries": len(labels), "positives": int(labels.sum()),
-        "k2_launches_per_step": counts["kg"]["sorted_segment_sum"]
-        // STAGE1_KG_EPOCHS,
+        "k2_expected": k2_kg,
         "losses": losses, "first_step_s": step_s[0],
         "steady_step_s": float(np.median(step_s[1:])), "step_s": step_s,
         "data_build_s": rec.seconds["make_reference_scale_dataset"][0],
@@ -2083,13 +2433,18 @@ def phase_stage1() -> dict:
         losses = loss_list([{k: v for k, v in r.items()
                              if k.endswith("loss") or k.startswith("loss")}
                             for r in records])
-        require(counts[mod] == {"bilinear_scores": 0,
-                                "sorted_segment_sum": 0}
+        # the str run's GIN sums on K2, and the tx run's embedding
+        # gathers' transposes; cv reduces no segments
+        k2_mod = (require_k2(counts[mod], f"stage1 ({mod})")
+                  if mod != "cv" else None)
+        require(counts[mod]["bilinear_scores"] == 0
+                and (mod != "cv" or counts[mod]["sorted_segment_sum"] == 0)
                 and len(losses) == STAGE1_EPOCHS
                 and np.isfinite(losses).all(),
                 f"stage1 ({mod}): launches {counts[mod]}, losses {losses}")
         lines[mod] = {"shrink": STAGE1_SHRINK, "epochs": STAGE1_EPOCHS,
-                      "losses": losses, "cli_s": t_cli}
+                      "losses": losses, "cli_s": t_cli,
+                      "k2_expected": k2_mod}
         if mod == "tx":
             final = {k: v for r in records for k, v in r.items()
                      if k == "tx_r2" or k.startswith("tx_disent_")}
@@ -2143,7 +2498,7 @@ def phase_pretrain_small():
                                      ("adamw_host", False, "adamw"))
             for dev in ("cpu", "cuda")}
     runs["cuda_plain_bwd"] = ("cuda", True, "adamw", False)
-    losses, grads, launches, seconds = {}, {}, {}, {}
+    losses, grads, launches, seconds, k2_want = {}, {}, {}, {}, {}
     for name, (dev, table, opt, src_sort) in runs.items():
         t0 = time.perf_counter()
         cfg = pretrain_small_config(opt)
@@ -2163,15 +2518,13 @@ def phase_pretrain_small():
             losses[name] += (trainer.train_steps(rest) if dev == "cuda"
                              else [trainer.train_step() for _ in range(rest)])
         launches[name] = read_launches()
+        if dev == "cuda":
+            k2_want[name] = require_k2(launches[name],
+                                       f"pretrain_small ({name})")
         seconds[name] = time.perf_counter() - t0
     enc = pretrain_small_config("adamw").encoder
-    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
-                                    enc.hgt.num_layers)
-    want = {n: (0 if n.startswith("cpu") or n == "cuda_plain_bwd" else
-                PRETRAIN_SMALL_STEPS * per_step) for n in runs}
-    require({n: c["sorted_segment_sum"] for n, c in launches.items()} == want
-            and all(c["bilinear_scores"] == 0 for c in launches.values()),
-            f"pretrain_small: launches {launches}, expected K2 {want}")
+    require(all(c["bilinear_scores"] == 0 for c in launches.values()),
+            f"pretrain_small: launches {launches}")
     loss_err = {}
     for name in ("adamw", "lars", "adamw_host"):
         cpu, card = losses[f"cpu_{name}"], losses[f"cuda_{name}"]
@@ -2195,7 +2548,7 @@ def phase_pretrain_small():
                      "hgt": enc.hgt.hidden_dim},
           "losses": losses, "max_rel_loss_err_vs_cpu": loss_err,
           "max_rel_hgt_grad_err_k2_vs_plain": grad_err,
-          "launches": launches, "run_s": seconds})
+          "launches": launches, "k2_expected": k2_want, "run_s": seconds})
 
 
 def pretrain_argv(save_dir: Path, steps: int, shrink: int = TRAIN_SHRINK,
@@ -2244,13 +2597,8 @@ def run_pretrain(argv, shrink: int, path: str):
     peak = torch.cuda.max_memory_allocated() / 1e9
     ds = rec.results["make_reference_scale_dataset"][0]
     check_k2_shapes(ds.kg_edge_indices, shrink, path)
-    steps = len(res["losses"])
-    per_step = k2_launches_per_step(
-        list(ds.kg_edge_indices),
-        flagship_config(NUM_LABELS).model.encoder.hgt.num_layers)
-    require(counts == {"bilinear_scores": 0,
-                       "sorted_segment_sum": per_step * steps},
-            f"{path}: launches {counts}, expected {per_step} of K2 a step")
+    require(counts["bilinear_scores"] == 0, f"{path}: launches {counts}")
+    require_k2(counts, path)
     require(all(np.isfinite(res["losses"])),
             f"{path}: losses {res['losses']}")
     return (res, counts, rec.seconds["_run_step"], t_cli, peak,
@@ -2558,11 +2906,8 @@ def phase_data_dir(stage2_path: str) -> dict:
     check_k2_shapes(loaded.kg_edge_indices, TRAIN_SHRINK, "data_dir")
     run_cfg = load_checkpoint(res["checkpoint"])[1]
     warm = check_warm_start(starts[0], run_cfg, ds, stage2)
-    hgt = cfg.model.encoder.hgt
-    want = k2_launches_per_step(list(ds.kg_edge_indices),
-                                hgt.num_layers) * DATA_DIR_EPOCHS
-    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": want},
-            f"data_dir: launches {counts}, expected {want} of K2")
+    require(counts["bilinear_scores"] == 0, f"data_dir: launches {counts}")
+    k2_want = require_k2(counts, "data_dir")
     require(len(res["losses"]) == DATA_DIR_EPOCHS
             and all(np.isfinite(v) for l in res["losses"]
                     for v in l.values())
@@ -2595,6 +2940,7 @@ def phase_data_dir(stage2_path: str) -> dict:
                               for e in loaded.kg_edge_indices.values())),
           "tx_csv_bytes": tx_bytes, "optimizer": DATA_DIR_OPTIMIZER,
           "memory_flags": TRAIN_MEMORY_FLAGS, "launches": counts,
+          "k2_expected": k2_want,
           "warm_start": warm, "losses": res["losses"],
           "data_build_s": t_build, "export_s": t_export,
           "load_s": rec.seconds["load_reference_dataset"],
@@ -2623,6 +2969,7 @@ def predict_data_dir(root: Path, ckpt: Path, work: Path) -> dict:
         "--export_embeddings", emb, "--triples", *TRIPLES]))
     t_cli = time.perf_counter() - t0
     counts = read_launches()  # counts end here
+    k2_want = require_k2(counts, "data_dir serving")
     z = np.load(emb).astype(np.float64)
     model, _ = P.model_from_checkpoint(str(ckpt), device="cpu")
     w = P.decoder_weight(model).detach().numpy().astype(np.float64)
@@ -2632,7 +2979,8 @@ def predict_data_dir(root: Path, ckpt: Path, work: Path) -> dict:
     require(z.shape == (NUM_DRUGS, D) and np.isfinite(z).all()
             and err <= 1e-4 * np.abs(want).max(),
             f"data_dir serving: triples {answers} against {want}")
-    return {"cli_s": t_cli, "triple_max_abs_err": err, "launches": counts}
+    return {"cli_s": t_cli, "triple_max_abs_err": err, "launches": counts,
+            "k2_expected": k2_want}
 
 
 def phase_all_train() -> dict:
@@ -2658,19 +3006,18 @@ def phase_all_train() -> dict:
         counts = read_launches()  # counts end here
     trained = rec.results["load_reference_all_train"][0]
     check_k2_shapes(trained.kg_edge_indices, ALL_TRAIN_SHRINK, "all_train")
-    hgt = flagship_config(NUM_LABELS).model.encoder.hgt
-    want = k2_launches_per_step(list(ds.kg_edge_indices),
-                                hgt.num_layers) * ALL_TRAIN_EPOCHS
+    k2_want = require_k2(counts, "all_train")
     require(len(trained.edge_df) == rows
-            and counts == {"bilinear_scores": 0, "sorted_segment_sum": want}
+            and counts["bilinear_scores"] == 0
             and len(res["losses"]) == ALL_TRAIN_EPOCHS
             and all(np.isfinite(v) for l in res["losses"]
                     for v in l.values()),
             f"all_train: {len(trained.edge_df)} rows of {rows}, launches "
-            f"{counts} (K2 {want}), losses {res['losses']}")
+            f"{counts}, losses {res['losses']}")
     emit({"phase": "all_train", "shrink": ALL_TRAIN_SHRINK,
           "drugs": trained.num_drugs, "train_rows": len(trained.edge_df),
-          "launches": counts, "losses": res["losses"],
+          "launches": counts, "k2_expected": k2_want,
+          "losses": res["losses"],
           "epoch_s": res["epoch_seconds"], "cli_data_s": res["data_seconds"],
           "cli_s": t_cli})
     shutil.rmtree(work)
@@ -2695,9 +3042,9 @@ def alt_config(cfg: C.TrainConfig, str_enc: str, kg_enc: str,
 
 
 class RowsSeen:
-    """Notes the dtype of every row table the HGT's source-gather backward
-    hands K2 (`ops/gather.sorted_segment_sum`), and keeps the rows of the
-    first launch of the given (rows, segments); the launches themselves
+    """Notes the dtype of every row table the gathers' backward hands K2
+    (`ops/gather.sorted_segment_sum`), and keeps the rows of the first
+    launch of the given (rows, segments, width); the launches themselves
     are counted by the kernel's wrapper as always."""
 
     def __init__(self, keep: tuple = ()):
@@ -2708,7 +3055,7 @@ class RowsSeen:
 
         def seen(data, starts, n):
             self.dtypes.append(DTYPE_NAME[data.dtype])
-            if (data.shape[0], n) == self.keep and self.kept is None:
+            if (*data.shape, n) == self.keep and self.kept is None:
                 self.kept = (data, starts, n)
             return self._orig(data, starts, n)
 
@@ -2736,8 +3083,6 @@ def phase_alt_small():
             rgcn=C.RGCNConfig(hidden_dim=64))))
     runs = {f"{s}_{k}": alt_config(base, s, k) for s, k in ALT_ENCODERS}
     runs["gat_hgt_bf16"] = alt_config(base, "gat", "hgt", bf16=True)
-    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
-                                    base.model.encoder.hgt.num_layers)
     total = {"bilinear_scores": 0, "sorted_segment_sum": 0}
     report = {}
     for name, cfg in runs.items():
@@ -2756,13 +3101,13 @@ def phase_alt_small():
                 counts[dev] = read_launches()  # counts end here
             rows[dev] = sorted(set(seen.dtypes))
         bf16 = name.endswith("bf16")
-        hgt = cfg.model.encoder.kg_encoder == "hgt"
-        want = {"bilinear_scores": 0,
-                "sorted_segment_sum": ALT_SMALL_STEPS * per_step * hgt}
-        require(counts["cuda"] == want and rows["cuda"] == (
-            (["bf16"] if bf16 else ["f32"]) if hgt else []),
-                f"alt_small {name}: launches {counts['cuda']} (expected "
-                f"{want}), K2 rows {rows['cuda']}")
+        k2_want = require_k2(counts["cuda"], f"alt_small {name}")
+        # the bf16 HGT hands K2 its bf16 gathers' rows, the denominators'
+        # f32 ones; every other gather's rows are f32
+        require(counts["cuda"]["bilinear_scores"] == 0 and rows["cuda"] == (
+            ["bf16", "f32"] if bf16 else ["f32"]),
+                f"alt_small {name}: launches {counts['cuda']}, K2 rows "
+                f"{rows['cuda']}")
         tol = BF16_LOSS_RTOL if bf16 else 1e-4
         err = 0.0
         for lc, lg in zip(losses["cpu"], losses["cuda"]):
@@ -2777,6 +3122,7 @@ def phase_alt_small():
                         "losses_cpu": losses["cpu"],
                         "max_rel_loss_err_vs_cpu": err, "tol": tol,
                         "launches": counts["cuda"], "k2_rows": rows["cuda"],
+                        "k2_expected": k2_want,
                         "run_s": time.perf_counter() - t0}
     emit({"phase": "alt_small", "drugs": ds.num_drugs,
           "steps": ALT_SMALL_STEPS, "widths": {
@@ -2832,7 +3178,8 @@ def serve_cut(model, ds) -> tuple:
     finally:
         log.removeHandler(times)
     n_chunks = -(-NUM_LABELS // LABEL_CHUNK)
-    require(counts == {"bilinear_scores": n_chunks, "sorted_segment_sum": 0}
+    require_k2(counts, "serving cut")
+    require(counts["bilinear_scores"] == n_chunks
             and scores.shape == (NUM_LABELS, SERVE_HEADS, NUM_DRUGS)
             and np.isfinite(scores).all() and np.isfinite(z).all(),
             f"serving cut: launches {counts}, scores {scores.shape}")
@@ -2859,9 +3206,6 @@ def phase_alt_encoders(ds):
                      torch.float32, seed=2, iters=20)["ms"]
     small = reference_scale_kwargs(ALT_SHRINK)
     n_small, l_small = small["num_drugs"], small["num_labels"]
-    hgt_layers = flagship_config(NUM_LABELS).model.encoder.hgt.num_layers
-    k2_epoch = k2_launches_per_step(list(reference_scale_kg_sizes()[1]),
-                                    hgt_layers)
     total = {"bilinear_scores": 0, "sorted_segment_sum": 0}
     report = {}
     for s, k in ALT_ENCODERS:
@@ -2876,6 +3220,7 @@ def phase_alt_encoders(ds):
                 TRAIN_MEMORY_FLAGS, 1, save_dir, shrink=ALT_SHRINK, cfg=cfg))
             t_train = time.perf_counter() - t0
             train_counts = read_launches()  # counts end here
+            k2_train = require_k2(train_counts, f"alt_encoders {name} training")
             reset_launches()  # counts start here
             t0 = time.perf_counter()
             cli_predict.main([
@@ -2885,12 +3230,12 @@ def phase_alt_encoders(ds):
                 "--export_scores", str(scores_path)])
             t_predict = time.perf_counter() - t0
             predict_counts = read_launches()  # counts end here
+            k2_predict = require_k2(predict_counts,
+                                    f"alt_encoders {name} serving")
         train_ds, predict_ds = rec.results["make_reference_scale_dataset"]
         want_k1 = -(-l_small // ENSEMBLE_CHUNK)
-        require(train_counts == {"bilinear_scores": 0,
-                                 "sorted_segment_sum": k2_epoch * (k == "hgt")}
-                and predict_counts == {"bilinear_scores": want_k1,
-                                       "sorted_segment_sum": 0}
+        require(train_counts["bilinear_scores"] == 0
+                and predict_counts["bilinear_scores"] == want_k1
                 and len(res["losses"]) == 1
                 and all(np.isfinite(v) for v in res["losses"][0].values()),
                 f"alt_encoders {name}: training launches {train_counts}, "
@@ -2915,10 +3260,10 @@ def phase_alt_encoders(ds):
             total = {key: total[key] + c[key] for key in total}
         report[name] = {
             "train": {"shrink": ALT_SHRINK, "launches": train_counts,
-                      "losses": res["losses"],
+                      "k2_expected": k2_train, "losses": res["losses"],
                       "epoch_s": res["epoch_seconds"], "cli_s": t_train},
             "predict": {"launches": predict_counts, "cli_s": t_predict,
-                        "scores_vs_cpu": vs_cpu},
+                        "k2_expected": k2_predict, "scores_vs_cpu": vs_cpu},
             "serving_cut": {"launches": cut_counts, **cut_s}}
         shutil.rmtree(save_dir)
         scores_path.unlink()
@@ -2956,7 +3301,7 @@ def phase_bf16_train(ds):
                               random_model(cfg, ds, seed=0).cuda())
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    with RowsSeen(keep=(e_pad, n_ppi)) as seen:
+    with RowsSeen(keep=(e_pad, K2_WIDTH, n_ppi)) as seen:
         reset_launches()  # counts start here
         t0 = time.perf_counter()
         losses = trainer.train_epoch()
@@ -2964,14 +3309,17 @@ def phase_bf16_train(ds):
         t_step = time.perf_counter() - t0
         counts = read_launches()  # counts end here
     peak = torch.cuda.max_memory_allocated() / 1e9
-    want = k2_launches_per_step(list(ds.kg_edge_indices),
-                                enc.hgt.num_layers)
-    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": want}
-            and seen.dtypes == ["bf16"] * want and seen.kept is not None
+    k2_want = require_k2(counts, "bf16_train")
+    # the HGT's gathers hand K2 bf16 rows, its denominators and the GIN's
+    # gathers f32 ones
+    require(counts["bilinear_scores"] == 0
+            and sorted(set(seen.dtypes)) == ["bf16", "f32"]
+            and seen.kept is not None
             and all(np.isfinite(v) for v in losses.values()),
-            f"bf16_train: launches {counts} (K2 {want}), K2 rows "
-            f"{seen.dtypes}, losses {losses}")
+            f"bf16_train: launches {counts}, K2 rows {seen.dtypes}, "
+            f"losses {losses}")
     data, starts, n = seen.kept
+    seen_dtypes = seen.dtypes
     del trainer, batch, kg, seen
     require(n == n_ppi and int(starts[-1]) == e_real,
             f"bf16_train: the kept rows are not ppi's: {n} segments, "
@@ -2983,7 +3331,9 @@ def phase_bf16_train(ds):
           "compute_dtype": {"hgt": "bfloat16", "transformer": "bfloat16"},
           "memory_flags": TRAIN_MEMORY_FLAGS, "losses": losses,
           "build_s": t_build, "step_s": t_step, "launches": counts,
-          "k2_rows": "bf16", "peak_device_mem_gb": peak,
+          "k2_expected": k2_want,
+          "k2_rows": {d: seen_dtypes.count(d) for d in ("bf16", "f32")},
+          "peak_device_mem_gb": peak,
           "k2_ppi_bf16": row})
     del data, starts
     torch.cuda.empty_cache()
@@ -3240,8 +3590,10 @@ def phase_chemcpa_sweep():
     require(len(after) == len(SWEEP_RATES)
             and abs(after[1] - after[0]) <= SWEEP_MEM_SLACK,
             f"chemcpa_sweep: allocated bytes after each config {after}")
-    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+    require(counts["bilinear_scores"] == 0,
             f"chemcpa_sweep: launches {counts}")
+    # K2 carries the transposes of the embeddings' gathers
+    k2_want = require_k2(counts, "chemcpa_sweep")
     # the best encoder onto the flagship encoder
     sd, cfg = load_checkpoint(res["checkpoint"])
     ds = rec.results["make_dataset"][0]
@@ -3254,7 +3606,7 @@ def phase_chemcpa_sweep():
             "chemcpa_sweep: the best checkpoint does not overlay onto the "
             "flagship encoder's tx module")
     emit({"phase": "chemcpa_sweep", "drugs": SWEEP_DRUGS,
-          "genes": ds.tx_table.shape[2],
+          "k2_expected": k2_want, "genes": ds.tx_table.shape[2],
           "configs": len(summaries), "epochs": SWEEP_EPOCHS,
           "widths": {"dim": chem.dim, "width": chem.autoencoder_width,
                      "depth": chem.autoencoder_depth},
@@ -3307,7 +3659,10 @@ def phase_lm_decoder(ckpt: str, z_path: str):
         counts = read_launches()  # counts end here
     z = np.load(z_path)
     z_err = float(np.abs(res["drug_table"] - z).max())
-    require(res["drug_table"].shape == z.shape and z_err <= 1e-5,
+    # the same model's KG pass and drug encodings on the same data: the
+    # same bits as the serving phase's (its sums all run on K2)
+    require(res["drug_table"].shape == z.shape
+            and np.array_equal(res["drug_table"], z),
             f"lm_decoder: the drug table differs from the serving phase's "
             f"embeddings by {z_err}")
     losses = res["losses"]
@@ -3316,8 +3671,8 @@ def phase_lm_decoder(ckpt: str, z_path: str):
     keys = ("auroc", "auprc", "fmax", "accuracy")
     require(all(np.isfinite(m[k]) for m in res["metrics"] for k in keys),
             f"lm_decoder: zero-shot metrics {res['metrics']}")
-    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
-            f"lm_decoder: launches {counts}")
+    require(counts["bilinear_scores"] == 0, f"lm_decoder: launches {counts}")
+    k2_want = require_k2(counts, "lm_decoder")  # the drug table's pass
     # the saved head on the CPU against the trainer on the card
     sd = torch.load(Path(res["path"]) / "lm_decoder.pt", weights_only=True)
     head = LMDecoder.from_state_dict(sd)
@@ -3342,7 +3697,8 @@ def phase_lm_decoder(ckpt: str, z_path: str):
           "batch": LM_BATCH, "losses": losses,
           "zero_shot": [{k: m[k] for k in keys} for m in res["metrics"]],
           "drug_table_max_abs_err": z_err, "cpu_max_abs_err": cpu_err,
-          "launches": counts, "data_s": rec.seconds["load_data"],
+          "launches": counts, "k2_expected": k2_want,
+          "data_s": rec.seconds["load_data"],
           "tables_s": rec.seconds["build_lm_table"],
           "drug_table_s": rec.seconds["_drug_table"],
           "text_table_s": rec.seconds["_text_table"],
@@ -3487,8 +3843,9 @@ def phase_pretrain_embeds(enc_cfg, ds, before: dict, after: dict):
             and res["projection"] == "pca",
             f"pretrain_embeds: alignment {align}, {len(res['drugs'])} "
             "drugs")
-    require(counts == {"bilinear_scores": 0, "sorted_segment_sum": 0},
+    require(counts["bilinear_scores"] == 0,
             f"pretrain_embeds: launches {counts}")
+    k2_want = require_k2(counts, "pretrain_embeds")
     drugs = res["drugs"][:EMBED_DRUGS_VS_CPU]
     table = kg_table(enc, kg)
     cpu_enc = copy.deepcopy(enc).cpu()
@@ -3510,7 +3867,7 @@ def phase_pretrain_embeds(enc_cfg, ds, before: dict, after: dict):
                                                 res["drugs"]],
           "rows": int(len(res["modality"])), "alignment": align,
           "rows_vs_cpu_max_abs_err": err, "rows_vs_cpu_largest": scale,
-          "launches": counts, "shift_s": t_shift})
+          "launches": counts, "k2_expected": k2_want, "shift_s": t_shift})
     return counts
 
 
@@ -3605,7 +3962,7 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
     (LABEL_CHUNK x SERVE_HEADS x 6,843 f32, the serving model's decoder
     weight and embeddings) and around one stage-3 training step of the
     flagship at the training phase's shapes (the reference scale /
-    SYNTHETIC_TRAIN_SHRINK, the HGT remat, 15 K2 launches), after one
+    SYNTHETIC_TRAIN_SHRINK, the HGT remat), after one
     untraced step: each trace must name K1's kernel (`gemm_f32`) or K2's
     (`segment_sum_kernel`); each trace's top device operations and busy
     share; StepTimer's summary over PROFILE_STEPS more steps;
@@ -3649,10 +4006,8 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
     counts = read_launches()  # counts end here
     traces = {"k1": trace_summary(work / "k1", ("gemm_f32",)),
               "step": trace_summary(work / "step", ("segment_sum_kernel",))}
-    per_step = k2_launches_per_step(list(ds.kg_edge_indices),
-                                    enc.hgt.num_layers)
-    require(counts == {"bilinear_scores": 1,
-                       "sorted_segment_sum": per_step * (2 + PROFILE_STEPS)}
+    k2_want = require_k2(counts, "profile")
+    require(counts["bilinear_scores"] == 1
             and all(np.isfinite(v) for v in losses.values())
             and torch.isfinite(scores).all(),
             f"profile: launches {counts}, losses {losses}")
@@ -3664,7 +4019,7 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
                                            NUM_DRUGS],
           "step_shrink": SYNTHETIC_TRAIN_SHRINK, "traces": traces,
           "step_timer": timer.summary(), "memory": profiling.memory_stats(),
-          "launches": counts})
+          "launches": counts, "k2_expected": k2_want})
     del trainer, batch, kg
     shutil.rmtree(work)
     torch.cuda.empty_cache()
@@ -3864,10 +4219,12 @@ def main(argv) -> int:
     k1_checks = run("kernels", phase_kernels)
     k2_checks = run("k2_kernels", phase_k2_kernels)
     run("small", phase_small)
-    serving, model, z, ds, ckpt, emb = run("serving", phase_serving)
+    serving, model, z, ds, ckpt, emb, z_again = run("serving",
+                                                    phase_serving)
     paths = {"serving": serving}
     paths["ranks"], finish_ranks, ranks, rank_w = run("ranks", phase_ranks,
-                                                      model, z)
+                                                      model, z, z_again)
+    del z_again
     w_sym = P.decoder_weight(model).cpu()  # the profile phase's K1 call
     del model
     paths["parallel_small"] = run("parallel_small", phase_parallel_small)

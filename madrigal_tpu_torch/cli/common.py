@@ -64,9 +64,11 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--no_src_mxu", action="store_true",
                    help="training: drop the source-sorted KG layout, "
                         "so the HGT's source-gather backward runs as a "
-                        "plain index_add_ instead of the sorted segment-sum "
-                        "kernel K2 (serving never builds the layout)")
-
+                        "plain gather's instead of the sorted segment-sum "
+                        "kernel K2; that backward adds with atomics on the "
+                        "card and does not repeat from run to run (the "
+                        "destination-side sums stay on K2; serving never "
+                        "builds the source layout)")
 
 def _parse_value(v: str):
     # Python-style bool/None spellings first: json.loads("False") fails,
@@ -152,11 +154,12 @@ def load_data(args: argparse.Namespace, device: torch.device,
               ) -> Tuple[SyntheticDataset, DDICollator]:
     """The dataset and its collator: --synthetic_scale, the small
     synthetic dataset, or --data_dir's reference-format data (the loader's
-    defaults: TWOSIDES, split_by_triplets, train). The KG batch has the
-    plain layout, and with `kg_src_sort` also the source-sorted one that
-    the training backward reduces with kernel K2 (stage 2 asks for it
-    unless --no_src_mxu). Serving leaves it out: it runs no backward, and
-    the layout's host argsorts would only delay the first score."""
+    defaults: TWOSIDES, split_by_triplets, train). The KG batch is sorted
+    by destination with the layouts kernel K2 sums over, and with
+    `kg_src_sort` also carries the source-sorted one that the training
+    backward reduces with K2 (the training CLIs ask for it unless
+    --no_src_mxu). Serving leaves that one out: it runs no backward, and
+    its host argsorts would only delay the first score."""
     if args.synthetic_scale:
         ds = reference_scale_dataset(args)
     elif args.synthetic or not args.data_dir:

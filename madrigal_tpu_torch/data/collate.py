@@ -6,8 +6,10 @@ indices, train-edge undirecting, fixed or structured negatives, and the
 per-drug modality gathers (molecules, KG row lookup, cv/tx rows). It reads
 the numpy `EdgeTable` of `data/synthetic.py`.
 
-The KG batch is the plain layout, with the source-sorted layout of the
-HGT backward added under `kg_src_sort`. `full_drug_table` collates
+The KG batch is sorted by destination and carries the layouts kernel K2
+sums over (`data/kg.py`), with the source-sorted layout of the
+backward's source gathers added under `kg_src_sort`; its molecule
+batches carry theirs (`data/molgraph.py`). `full_drug_table` collates
 against the whole drug table (head/tail indices are then global drug
 ids) and `drug_table_cache` lets collators share their drug batches, as
 in the JAX package. The JAX collator's static-shape budgets (node, edge
@@ -129,9 +131,9 @@ class DDICollator:
                  kg_sampling_num_neighbors: Optional[int] = None,
                  kg_sampling_num_layers: int = 2) -> HeteroKGBatch:
         """The full-KG batch (the reference's default path,
-        data_utils.py:330-332), in the plain layout, with the
-        source-sorted layout when the collator was built with
-        kg_src_sort. With `kg_sampling_num_neighbors`, a drug-rooted
+        data_utils.py:330-332), sorted by destination with its K2
+        layouts, and the source-sorted layout when the collator was built
+        with kg_src_sort. With `kg_sampling_num_neighbors`, a drug-rooted
         sampled subgraph instead (`data/kg_sampling.py`; the reference's
         sample_kg_data), seeded at the KG drug rows of `seed_drug_ids`
         (all drugs when None) and drawn from the collator's rng. Its drug

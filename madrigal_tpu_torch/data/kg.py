@@ -1,13 +1,17 @@
 """Heterogeneous knowledge-graph batches as tensors.
 
 Port of `madrigal_tpu/data/kg.py` in its plain layout: per edge type,
-src/dst/mask arrays in the input's edge order, padded to a multiple of
-512 rows with masked edges, and one feature matrix per node type. With
-`src_sort`, each edge type also carries the source-sorted layout that
-the HGT's source-gather backward reduces over (`ops/gather.py`, kernel
-K2). The JAX package's degree-chunked arenas and source-transpose arenas
-are TPU layout workarounds whose outputs equal the plain path's, so they
-are not ported.
+src/dst/mask arrays padded to a multiple of 512 rows with masked edges,
+and one feature matrix per node type. By default the edges of each type
+are sorted by destination, stably, as the JAX package's `sort_edges`
+sorts them, and the batch carries the layouts that kernel K2 sums over
+(`ops/segment.py`, `ops/gather.py`): each edge type's destination
+boundary table, and each destination type's order and boundary table
+over the concatenation of its edge types (the global-scope softmax).
+With `src_sort`, each edge type also carries the source-sorted layout
+that the source gathers' backward reduces over. The JAX package's
+degree-chunked arenas and source-transpose arenas are TPU layout
+workarounds whose outputs equal the plain path's, so they are not ported.
 """
 from __future__ import annotations
 
@@ -54,6 +58,15 @@ class HeteroKGBatch:
       built with src_sort.
     edge_src_starts: {edge_key: [n_src + 1]} int32 boundary table over
       that order (starts[n_src] = number of real edges).
+    edge_dst_starts: {edge_key: [n_dst + 1]} int32 boundary table of the
+      edges, which are sorted by destination with the real edges first
+      (starts[n_dst] = number of real edges); empty unless built with
+      sort_edges.
+    dst_type_order / dst_type_starts: {node_type: ...} the order
+      ([sum of E_r] int32, real edges sorted by destination, masked rows
+      last) and the [n + 1] boundary table of the concatenation, in
+      metadata.edge_types order, of the edge arrays of every edge type
+      into the node type; empty unless built with sort_edges.
     """
 
     node_feats: Dict[str, torch.Tensor]
@@ -65,6 +78,12 @@ class HeteroKGBatch:
     edge_src_order: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
     edge_src_starts: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    edge_dst_starts: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    dst_type_order: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    dst_type_starts: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
 
     def num_nodes(self, node_type: str) -> int:
@@ -92,55 +111,125 @@ def _src_sort_layout(src: np.ndarray, msk: np.ndarray, n_src: int):
     return order, starts
 
 
+def _dst_starts(dst: np.ndarray, msk: np.ndarray, n_dst: int) -> np.ndarray:
+    """[n_dst + 1] boundary table of one edge type whose real edges come
+    first, sorted by destination."""
+    n_real = int(msk.sum())
+    if not msk[:n_real].all():
+        raise ValueError("the real edges are not the leading rows")
+    return np.searchsorted(dst[:n_real], np.arange(n_dst + 1)).astype(
+        np.int32)
+
+
+def _dst_type_layouts(edge_types: Sequence[EdgeType],
+                      dst_d: Dict[str, np.ndarray],
+                      mask_d: Dict[str, np.ndarray],
+                      n_nodes: Dict[str, int]):
+    """{node type: (order, starts)} over the concatenation, in
+    `edge_types` order, of the edge arrays of every edge type into the
+    node type (see HeteroKGBatch.dst_type_order). Each type's real edges
+    are sorted by destination already, so the stable sort merges runs."""
+    out = {}
+    for nt in sorted({et[2] for et in edge_types}):
+        keys = [edge_key(et) for et in edge_types if et[2] == nt]
+        dst = np.concatenate([dst_d[k] for k in keys]).astype(np.int64)
+        msk = np.concatenate([mask_d[k] for k in keys])
+        order = np.argsort(np.where(msk, dst, np.int64(n_nodes[nt]) + 1),
+                           kind="stable").astype(np.int32)
+        n_real = int(msk.sum())
+        out[nt] = (order, np.searchsorted(
+            dst[order[:n_real]], np.arange(n_nodes[nt] + 1)).astype(np.int32))
+    return out
+
+
+def kg_layouts(metadata: KGMetadata, edge_src: Dict[str, np.ndarray],
+               edge_dst: Dict[str, np.ndarray],
+               edge_mask: Dict[str, np.ndarray], n_nodes: Dict[str, int],
+               src_sort: bool) -> dict:
+    """The K2 layouts of destination-sorted edge arrays (host numpy), as
+    HeteroKGBatch fields of numpy arrays: edge_dst_starts, dst_type_order,
+    dst_type_starts, and with src_sort edge_src_order and edge_src_starts.
+    The real edges of each type must come first."""
+    out = {"edge_dst_starts": {}, "dst_type_order": {},
+           "dst_type_starts": {}, "edge_src_order": {},
+           "edge_src_starts": {}}
+    for et in metadata.edge_types:
+        k = edge_key(et)
+        out["edge_dst_starts"][k] = _dst_starts(edge_dst[k], edge_mask[k],
+                                                n_nodes[et[2]])
+        if src_sort:
+            (out["edge_src_order"][k],
+             out["edge_src_starts"][k]) = _src_sort_layout(
+                edge_src[k], edge_mask[k], n_nodes[et[0]])
+    for nt, (order, starts) in _dst_type_layouts(
+            metadata.edge_types, edge_dst, edge_mask, n_nodes).items():
+        out["dst_type_order"][nt] = order
+        out["dst_type_starts"][nt] = starts
+    return out
+
+
 def build_kg_batch(
     node_feats: Dict[str, np.ndarray],
     edge_indices: Dict[EdgeType, np.ndarray],  # [2, E] per canonical triple
     drug_ids: Sequence[int],
     device: torch.device | str | None = None,
     src_sort: bool = False,
+    sort_edges: bool = True,
 ) -> HeteroKGBatch:
     """Assemble a padded HeteroKGBatch on `device` (None: the card) from
     host arrays.
 
     Each edge type is padded to a multiple of PAD_MULTIPLE (at least one
     multiple) with masked rows, as the JAX package pads without budgets.
-    src_sort adds the source-sorted layout of every edge type."""
+    sort_edges (the default) orders each edge type by destination node,
+    stably (the JAX package's `sort_edges`), and adds the destination
+    layouts; False keeps the input order and builds no layout (the JAX
+    package's default batch, whose sums run on `index_add_`). src_sort
+    adds the source-sorted layout of every edge type."""
     device = resolve_device(device)
     metadata = KGMetadata(
         node_types=tuple(sorted(node_feats)),
         edge_types=tuple(sorted(edge_indices)),
     )
     n_nodes = {k: np.shape(v)[0] for k, v in node_feats.items()}
-    src_d, dst_d, mask_d, order_d, starts_d = {}, {}, {}, {}, {}
+    src_np, dst_np, msk_np = {}, {}, {}
     for et, ei in edge_indices.items():
         k = edge_key(et)
         ei = np.asarray(ei)
+        if sort_edges and ei.shape[1]:
+            ei = ei[:, np.argsort(ei[1], kind="stable")]
         e = ei.shape[1]
         budget = max(-(-e // PAD_MULTIPLE), 1) * PAD_MULTIPLE
-        src = np.zeros((budget,), np.int32)
-        dst = np.zeros((budget,), np.int32)
-        msk = np.zeros((budget,), bool)
-        src[:e] = ei[0]
-        dst[:e] = ei[1]
-        msk[:e] = True
-        src_d[k] = torch.from_numpy(src).to(device)
-        dst_d[k] = torch.from_numpy(dst).to(device)
-        mask_d[k] = torch.from_numpy(msk).to(device)
-        if src_sort:
-            order, starts = _src_sort_layout(src, msk, n_nodes[et[0]])
-            order_d[k] = torch.from_numpy(order).to(device)
-            starts_d[k] = torch.from_numpy(starts).to(device)
+        src_np[k] = np.zeros((budget,), np.int32)
+        dst_np[k] = np.zeros((budget,), np.int32)
+        msk_np[k] = np.zeros((budget,), bool)
+        src_np[k][:e] = ei[0]
+        dst_np[k][:e] = ei[1]
+        msk_np[k][:e] = True
+    if sort_edges:
+        layouts = kg_layouts(metadata, src_np, dst_np, msk_np, n_nodes,
+                             src_sort)
+    else:
+        layouts = {"edge_src_order": {}, "edge_src_starts": {}}
+        for et in metadata.edge_types if src_sort else ():
+            k = edge_key(et)
+            (layouts["edge_src_order"][k],
+             layouts["edge_src_starts"][k]) = _src_sort_layout(
+                src_np[k], msk_np[k], n_nodes[et[0]])
+
+    def put(arrays):
+        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
     return HeteroKGBatch(
         node_feats={k: torch.as_tensor(np.asarray(v, np.float32)).to(device)
                     for k, v in node_feats.items()},
-        edge_src=src_d,
-        edge_dst=dst_d,
-        edge_mask=mask_d,
+        edge_src=put(src_np),
+        edge_dst=put(dst_np),
+        edge_mask=put(msk_np),
         drug_index_map=torch.from_numpy(
             np.asarray(drug_ids, np.int32)).to(device),
         metadata=metadata,
-        edge_src_order=order_d,
-        edge_src_starts=starts_d,
+        **{name: put(arrays) for name, arrays in layouts.items()},
     )
 
 

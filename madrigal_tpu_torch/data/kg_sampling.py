@@ -36,7 +36,9 @@ def sample_kg_subgraph(
     row in the SUBGRAPH's drug table for original drug row i (-1 if
     dropped). The subgraph's drug_index_map keeps global drug ids so
     `drug_row_lookup` composes unchanged. The batch lands on `device`
-    (None: the card), with the source-sorted layout under `src_sort`.
+    (None: the card), sorted by destination with its K2 layouts as
+    `build_kg_batch` builds them, and with the source-sorted layout under
+    `src_sort`.
     """
     rng = rng or np.random.RandomState(0)
 

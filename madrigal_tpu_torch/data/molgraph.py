@@ -4,12 +4,15 @@ Port of `madrigal_tpu/data/molgraph.py`: molecules are packed into one
 node/edge arena padded to a multiple of 128 rows, as the JAX package pads
 without budgets, so the arrays equal its own. The padding is not needed
 by PyTorch, but keeping it makes the two batches comparable array for
-array.
+array. Beside those arrays the batch carries the sorted layouts that
+kernel K2 sums over (`ops/segment.py`, `ops/gather.py`): the bonds
+grouped by destination and by source atom, and the atoms' graph
+boundaries.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +29,15 @@ class MolGraphBatch:
     [N_pad] int32 graph id per atom (padding rows hold `num_graphs`);
     edge_src/edge_dst [E_pad] int32 (bonds in both directions, padding 0);
     edge_feats [E_pad, BOND_DIM] f32; edge_mask [E_pad] bool.
+
+    The K2 layouts (None when not built): edge_dst_order / edge_src_order
+    [E_pad] int32, the bonds sorted stably by destination / source atom,
+    real bonds first (a bond stays in its molecule's node block, so each
+    order permutes within a block); edge_dst_starts / edge_src_starts
+    [N_pad + 1] int32, the boundary tables over those orders
+    (starts[N_pad] = number of real bonds); node_graph_starts
+    [num_graphs + 1] int32, the first atom of each graph (atoms are packed
+    by graph, padding last, so the readout needs no order).
     """
 
     node_feats: torch.Tensor
@@ -36,6 +48,11 @@ class MolGraphBatch:
     edge_feats: torch.Tensor
     edge_mask: torch.Tensor
     num_graphs: int
+    edge_dst_order: Optional[torch.Tensor] = None
+    edge_dst_starts: Optional[torch.Tensor] = None
+    edge_src_order: Optional[torch.Tensor] = None
+    edge_src_starts: Optional[torch.Tensor] = None
+    node_graph_starts: Optional[torch.Tensor] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -51,6 +68,34 @@ PAD_MULTIPLE = 128
 
 def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def _sort_layout(ids: np.ndarray, msk: np.ndarray, n: int):
+    """(order, [n + 1] starts) of the real rows sorted stably by id, the
+    masked rows last."""
+    order = np.argsort(np.where(msk, ids.astype(np.int64), np.int64(n) + 1),
+                       kind="stable").astype(np.int32)
+    n_real = int(msk.sum())
+    return order, np.searchsorted(ids[order[:n_real]],
+                                  np.arange(n + 1)).astype(np.int32)
+
+
+def mol_layouts(node_mask: np.ndarray, node_graph: np.ndarray,
+                edge_src: np.ndarray, edge_dst: np.ndarray,
+                edge_mask: np.ndarray, num_graphs: int) -> dict:
+    """MolGraphBatch's K2 layout fields (numpy) of a packed arena whose
+    real atoms come first, grouped by graph."""
+    n_pad = node_mask.shape[0]
+    n_real = int(node_mask.sum())
+    if not node_mask[:n_real].all():
+        raise ValueError("the real atoms are not the leading rows")
+    out = {}
+    for side, ids in (("dst", edge_dst), ("src", edge_src)):
+        out[f"edge_{side}_order"], out[f"edge_{side}_starts"] = _sort_layout(
+            ids, edge_mask, n_pad)
+    out["node_graph_starts"] = np.searchsorted(
+        node_graph[:n_real], np.arange(num_graphs + 1)).astype(np.int32)
+    return out
 
 
 def pack_molecules(
@@ -94,6 +139,8 @@ def pack_molecules(
     def t(x):
         return torch.from_numpy(x).to(device)
 
+    layouts = mol_layouts(node_mask, node_graph, edge_src, edge_dst,
+                          edge_mask, len(graphs))
     return MolGraphBatch(
         node_feats=t(node_feats),
         node_mask=t(node_mask),
@@ -103,4 +150,5 @@ def pack_molecules(
         edge_feats=t(edge_feats),
         edge_mask=t(edge_mask),
         num_graphs=len(graphs),
+        **{k: t(v) for k, v in layouts.items()},
     )

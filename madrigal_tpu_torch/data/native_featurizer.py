@@ -155,7 +155,7 @@ def featurize_pack_native(smiles_list: List[str],
     native call: the port's MolGraphBatch on `device` (None: the card).
     A SMILES that does not parse becomes a one-atom dummy graph, so graph
     ids stay aligned with the input."""
-    from .molgraph import MolGraphBatch, round_up
+    from .molgraph import MolGraphBatch, mol_layouts, round_up
 
     device = resolve_device(device)
     lib = _load()
@@ -189,8 +189,12 @@ def featurize_pack_native(smiles_list: List[str],
     def t(x):
         return torch.from_numpy(x).to(device)
 
+    node_mask, edge_mask = node_mask.astype(bool), edge_mask.astype(bool)
+    layouts = mol_layouts(node_mask, node_graph, edge_src, edge_dst,
+                          edge_mask, count)
     return MolGraphBatch(
-        node_feats=t(node_feats), node_mask=t(node_mask.astype(bool)),
+        node_feats=t(node_feats), node_mask=t(node_mask),
         node_graph=t(node_graph), edge_src=t(edge_src),
         edge_dst=t(edge_dst), edge_feats=t(edge_feats),
-        edge_mask=t(edge_mask.astype(bool)), num_graphs=count)
+        edge_mask=t(edge_mask), num_graphs=count,
+        **{k: t(v) for k, v in layouts.items()})

@@ -9,6 +9,11 @@ the drug embeddings, their encoder and the dosers. With `adaptation`
 holds the autoencoder's `decoder` and, unless `disable_adv`, the
 adversaries. Flax creates those only when stage 1's `warmup` touches
 them, so the encoder that stages 2 and 3 build has no such entries.
+
+The covariate and drug embeddings are looked up with
+`ops/gather.gather_rows_grouped`, whose backward is kernel K2 on the
+card: `nn.Embedding`'s CUDA backward adds in an order that changes from
+run to run. The modules and their weights stay `nn.Embedding`s.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ChemCPAConfig
+from ..ops.gather import gather_rows_grouped
 from .mlp import ChemCPAMLP
 
 
@@ -81,7 +87,8 @@ class ChemCPAEncoder(nn.Module):
         """Dose-scaled drug embedding (model.py:575-653)."""
         c = self.cfg
         drugs_idx = drugs_idx.long()
-        latent_drugs = self.drug_embeddings(drugs_idx)  # [B, emb]
+        latent_drugs = gather_rows_grouped(self.drug_embeddings.weight,
+                                           drugs_idx)  # [B, emb]
         if c.doser_type == "amortized":
             inp = torch.cat([latent_drugs, dosages[:, None]], dim=1)
             scaled = self.dosers(inp)[:, 0]
@@ -104,7 +111,8 @@ class ChemCPAEncoder(nn.Module):
             return latent
         if self.cfg.use_drugs:
             latent = latent + self.compute_drug_embeddings(drugs_idx, dosages)
-        return latent + self.cov_embedding(covariate_idx.long())
+        return latent + gather_rows_grouped(self.cov_embedding.weight,
+                                            covariate_idx)
 
     def reconstruct(self, genes: torch.Tensor, covariate_idx: torch.Tensor,
                     drugs_idx: Optional[torch.Tensor] = None,

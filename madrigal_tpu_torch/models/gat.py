@@ -11,8 +11,10 @@ Per layer (GAT v1 with edge-conditioned messages, H heads of D = out / H):
   out_v = act(BN?(concat_k sum_e alpha_e,k * m_e,k))
 
 Readout: mean (or sum) over each molecule's real atoms. The message
-passing runs on the plain segment ops, as the JAX module does: there is
-no kernel here.
+passing runs on the segment ops of `ops/segment.py`, as the JAX module
+does; when the batch carries its K2 layouts (`data/molgraph.py`) the
+softmax denominators, the message sums and the readout are kernel K2,
+and the source and destination gathers' backward too (`ops/gather.py`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ from torch import nn
 
 from ..constants import BOND_DIM, MOL_DIM
 from ..data.molgraph import MolGraphBatch
-from ..ops.segment import segment_mean, segment_softmax, segment_sum
+from ..ops.gather import gather_rows_sorted
+from ..ops.segment import segment_softmax, segment_sum
+from .gin import graph_readout, src_rows
 from .mlp import activation
 from .norm import MaskedBatchNorm
 
@@ -50,8 +54,11 @@ class GATConv(nn.Module):
         h = self.linear(x)
         edge_term = self.edge_linear(g.edge_feats).masked_fill(
             ~g.edge_mask.unsqueeze(-1), 0.0)
-        msg = h[g.edge_src.long()] + edge_term
-        hq = h[g.edge_dst.long()].reshape(-1, self.H, self.D)
+        msg = src_rows(h, g) + edge_term
+        hq = (h[g.edge_dst.long()] if g.edge_dst_starts is None
+              else gather_rows_sorted(h, g.edge_dst, g.edge_dst_order,
+                                      g.edge_dst_starts)
+              ).reshape(-1, self.H, self.D)
         mk = msg.reshape(-1, self.H, self.D)
         logits = F.leaky_relu(
             torch.einsum("ehd,hd->eh", torch.cat([hq, mk], dim=-1), self.att),
@@ -59,8 +66,9 @@ class GATConv(nn.Module):
         # padded edges go to the dropped segment id n
         dst = torch.where(g.edge_mask, g.edge_dst.long(),
                           torch.full_like(g.edge_dst.long(), n))
-        alpha = segment_softmax(logits, dst, n, mask=g.edge_mask)
-        out = segment_sum(mk * alpha.unsqueeze(-1), dst, n).reshape(
+        layout = dict(starts=g.edge_dst_starts, order=g.edge_dst_order)
+        alpha = segment_softmax(logits, dst, n, mask=g.edge_mask, **layout)
+        out = segment_sum(mk * alpha.unsqueeze(-1), dst, n, **layout).reshape(
             n, self.H * self.D)
         if self.bn is not None:
             out = self.bn(out, mask=g.node_mask)
@@ -94,10 +102,4 @@ class GATEncoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(g, x)
         node_feature = x.masked_fill(~g.node_mask.unsqueeze(-1), 0.0)
-        seg = torch.where(g.node_graph < g.num_graphs, g.node_graph.long(),
-                          torch.full_like(g.node_graph.long(), g.num_graphs))
-        if self.readout == "mean":
-            graph_feature = segment_mean(node_feature, seg, g.num_graphs)
-        else:
-            graph_feature = segment_sum(node_feature, seg, g.num_graphs)
-        return graph_feature, node_feature
+        return graph_readout(node_feature, g, self.readout), node_feature

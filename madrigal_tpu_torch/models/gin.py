@@ -6,6 +6,12 @@ Per layer:
   aggregate a_v = sum_{e: dst_e = v} m_e
   combine   h_v = act(BN(MLP((1 + eps) * x_v + a_v)))
 Readout: mean (or sum) over each molecule's real atoms.
+
+When the batch carries its K2 layouts (`data/molgraph.py`), the
+aggregate and the readout are kernel K2 over the destination and graph
+boundary tables, and the source gather's backward is K2 over the
+source-sorted layout (`ops/segment.py`, `ops/gather.py`), so the results
+have the same bits on every run.
 """
 from __future__ import annotations
 
@@ -16,9 +22,29 @@ from torch import nn
 
 from ..constants import BOND_DIM, MOL_DIM
 from ..data.molgraph import MolGraphBatch
+from ..ops.gather import gather_rows_sorted
 from ..ops.segment import segment_mean, segment_sum
 from .mlp import activation
 from .norm import MaskedBatchNorm
+
+
+def src_rows(x: torch.Tensor, g: MolGraphBatch) -> torch.Tensor:
+    """`x[edge_src]`, with a K2 backward when the batch has the layout."""
+    if g.edge_src_starts is not None:
+        return gather_rows_sorted(x, g.edge_src, g.edge_src_order,
+                                  g.edge_src_starts)
+    return x[g.edge_src.long()]
+
+
+def graph_readout(node_feature: torch.Tensor, g: MolGraphBatch,
+                  readout: str) -> torch.Tensor:
+    """Mean or sum of each graph's atom rows [B, D]; padding atoms belong
+    to no graph."""
+    seg = torch.where(g.node_graph < g.num_graphs, g.node_graph.long(),
+                      torch.full_like(g.node_graph.long(), g.num_graphs))
+    reduce = segment_mean if readout == "mean" else segment_sum
+    return reduce(node_feature, seg, g.num_graphs,
+                  starts=g.node_graph_starts)
 
 
 class GINConv(nn.Module):
@@ -41,13 +67,14 @@ class GINConv(nn.Module):
         self.bn = MaskedBatchNorm(output_dim) if batch_norm else None
 
     def forward(self, g: MolGraphBatch, x: torch.Tensor) -> torch.Tensor:
-        msg = x[g.edge_src.long()] + self.edge_linear(g.edge_feats)
+        msg = src_rows(x, g) + self.edge_linear(g.edge_feats)
         msg = msg.masked_fill(~g.edge_mask.unsqueeze(-1), 0.0)
         # padded edges go to the dropped segment id num_nodes_padded
         dst = torch.where(g.edge_mask, g.edge_dst.long(),
                           torch.full_like(g.edge_dst.long(),
                                           g.num_nodes_padded))
-        agg = segment_sum(msg, dst, g.num_nodes_padded)
+        agg = segment_sum(msg, dst, g.num_nodes_padded,
+                          starts=g.edge_dst_starts, order=g.edge_dst_order)
         h = (1.0 + self.eps) * x + agg
         for i in range(self.num_mlp_layer):
             h = getattr(self, f"mlp_{i}")(h)
@@ -86,10 +113,4 @@ class GINEncoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(g, x)
         node_feature = x.masked_fill(~g.node_mask.unsqueeze(-1), 0.0)
-        seg = torch.where(g.node_graph < g.num_graphs, g.node_graph.long(),
-                          torch.full_like(g.node_graph.long(), g.num_graphs))
-        if self.readout == "mean":
-            graph_feature = segment_mean(node_feature, seg, g.num_graphs)
-        else:
-            graph_feature = segment_sum(node_feature, seg, g.num_graphs)
-        return graph_feature, node_feature
+        return graph_readout(node_feature, g, self.readout), node_feature

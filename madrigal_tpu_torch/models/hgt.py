@@ -16,26 +16,36 @@ Per layer:
 This is the plain per-head math. The JAX package's block-diagonal
 relation matmul and indicator-matmul head logits are TPU lane-layout
 forms of the same sums (hgt.py:70-121). As there, k' and v' are gathered
-by edge source once, from the fused [N_src, 2F] table, and when the KG
-batch carries the source-sorted layout that gather's backward is kernel
-K2 (`ops/gather.py`). With `remat_edge_types` (per_edge_type scope only,
-as in the JAX package) each edge type's messages are recomputed in the
-backward, so only its [N_dst, F] aggregate is kept, not its [E, ...]
+by edge source once, from the fused [N_src, 2F] table.
+
+Every sum runs on kernel K2 when the KG batch carries the sorted layouts
+(`data/kg.py`, built by default): the softmax denominators and message
+sums over each edge type's destination boundary table (the global scope
+over its destination type's order), and the backward of the gathers
+`q[dst]` (over the same table, `ops/gather.py` with no order) and of the
+source gather (over the source-sorted layout, when the batch has it and
+`src_sorted_bwd` is on). So a forward, a backward and an export give the
+same bits on every run. Without the layouts, or with src_sorted_bwd off
+for the source gather, the plain ops run, whose CUDA backward adds with
+atomics in an order that changes from run to run. With
+`remat_edge_types` (per_edge_type scope only, as in the JAX package)
+each edge type's messages are recomputed in the backward, on the same
+layouts, so only its [N_dst, F] aggregate is kept, not its [E, ...]
 edge buffers.
 
 With `compute_dtype='bfloat16'` (hgt.py:87-97, 124-176) the relation
 transforms, the fused k|v gather, the logits product and the weighted
 messages run in bf16; the head-logit sums, the segment softmax and the
-output accumulation stay float32. The gather's backward then hands K2
-bf16 rows. With 'float32' no cast is inserted.
+output accumulation stay float32: K2 takes the bf16 messages and sums
+them in f32, and the gathers' backward hands it bf16 rows. With
+'float32' no cast is inserted.
 
 With `shard_axis` (the mesh axis of `parallel/mesh.py`; hgt.py:272-280
 and 355-370 of the JAX package) the conv runs graph-parallel: the KG
-batch holds this rank's share of every edge type's edges
-(`parallel/kg_shard.py`), the segment softmax and sum merge over the
-axis's group, and the source-sorted layouts are not used (they index
-the global edge axis), so the gather's backward is the plain one and K2
-does not run. Node tables and weights are replicated.
+batch holds this rank's share of every edge type's edges with the
+share's own layouts (`parallel/kg_shard.py`), and the segment softmax
+and sum merge each rank's K2 sums over the axis's group. Node tables and
+weights are replicated.
 """
 from __future__ import annotations
 
@@ -61,12 +71,22 @@ def _src_gather(table: torch.Tensor, g: HeteroKGBatch, ek: str,
     layout and src_sorted_bwd is on (on the card K2 raises on a table it
     cannot take; it takes every float32, bfloat16 and float16 width, where
     the JAX package gates the Pallas kernel on the TPU's 128 lanes).
-    Otherwise the plain gather, whose backward is `index_add_`."""
+    Otherwise the plain gather."""
     order = g.edge_src_order.get(ek)
     if src_sorted_bwd and order is not None:
         return gather_rows_sorted(table, g.edge_src[ek], order,
                                   g.edge_src_starts[ek])
     return table[g.edge_src[ek].long()]
+
+
+def _dst_gather(table: torch.Tensor, g: HeteroKGBatch,
+                ek: str) -> torch.Tensor:
+    """`table[dst]` for edge type `ek`: with the destination boundary
+    table, a gather whose backward is K2 over the sorted edges."""
+    starts = g.edge_dst_starts.get(ek)
+    if starts is not None:
+        return gather_rows_sorted(table, g.edge_dst[ek], None, starts)
+    return table[g.edge_dst[ek].long()]
 
 
 def _casters(compute_dtype):
@@ -151,7 +171,6 @@ class HGTConv(nn.Module):
         src_t, _, dst_t = et
         ek = edge_key(et)
         cast = self.cast
-        dst = g.edge_dst[ek].long()
         k_s = _relation_transform(cast(k[src_t]),
                                   cast(getattr(self, f"k_rel__{ek}")))
         v_s = _relation_transform(cast(v[src_t]),
@@ -159,20 +178,27 @@ class HGTConv(nn.Module):
         # one gather of the fused k|v table (a gather of a concatenation
         # is the concatenation of the gathers)
         kv = _src_gather(torch.cat([k_s, v_s], dim=-1), g, ek,
-                         self.src_sorted_bwd
-                         and self.shard_axis is None)  # [E, 2F]
-        prod = cast(q[dst_t])[dst] * kv[:, :self.F]  # [E, F]
+                         self.src_sorted_bwd)  # [E, 2F]
+        prod = _dst_gather(cast(q[dst_t]), g, ek) * kv[:, :self.F]  # [E, F]
         logits = (self.up(prod).reshape(-1, self.H, self.D).sum(-1)
                   * getattr(self, f"p_rel__{ek}")[None, :]
                   / math.sqrt(self.D))
         return logits, kv[:, self.F:]
 
-    def _aggregate(self, logits, vals, dst, mask, n_dst):
+    def _aggregate(self, logits, vals, dst, mask, n_dst, starts=None,
+                   order=None):
+        """The softmax of [E, H] logits per destination and the sum of the
+        [E, F] values weighted by it, under the layout (starts, order) of
+        `ops/segment.py` when given: K2 then takes the compute-type
+        messages and sums them in f32."""
         group = self._group()
-        alpha = segment_softmax(logits, dst, n_dst, mask=mask,
-                                group=group)  # [E, H]
-        msg = vals * self.cast(alpha).repeat_interleave(self.D, dim=-1)
-        return segment_sum(self.up(msg), dst, n_dst, group)
+        alpha = segment_softmax(logits, dst, n_dst, mask=mask, group=group,
+                                starts=starts, order=order)  # [E, H]
+        msg = (vals.reshape(-1, self.H, self.D)
+               * self.cast(alpha)[..., None]).reshape(-1, self.F)
+        if starts is None:
+            msg = self.up(msg)
+        return segment_sum(msg, dst, n_dst, group, starts, order)
 
     def forward(self, g: HeteroKGBatch, x_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -198,10 +224,11 @@ class HGTConv(nn.Module):
                 continue
 
             def messages(q, k, v, et=et, dst_safe=dst_safe, mask=mask,
-                         n_dst=n_dst):
+                         n_dst=n_dst, starts=g.edge_dst_starts.get(ek)):
                 logits, vals = self._edge_logits_values(
                     g, et, {et[2]: q}, {et[0]: k}, {et[0]: v})
-                return self._aggregate(logits, vals, dst_safe, mask, n_dst)
+                return self._aggregate(logits, vals, dst_safe, mask, n_dst,
+                                       starts)
 
             args = (q_dict[dst_t], k_dict[src_t], v_dict[src_t])
             agg[dst_t].append(remat(messages, *args)
@@ -209,12 +236,17 @@ class HGTConv(nn.Module):
 
         if self.softmax_scope == "global":
             # one softmax over the concatenation of every edge type's
-            # incoming edges per destination node (PyG 2.3 HGTConv)
+            # incoming edges per destination node (PyG 2.3 HGTConv); the
+            # batch's per-type layout covers that concatenation when the
+            # conv's edge types are the batch's, in the same order
+            same = self.edge_types == g.metadata.edge_types
             for nt, items in pending.items():
                 if items:
                     agg[nt].append(self._aggregate(
                         *(torch.cat([it[i] for it in items]) for i in range(4)),
-                        g.num_nodes(nt)))
+                        g.num_nodes(nt),
+                        g.dst_type_starts.get(nt) if same else None,
+                        g.dst_type_order.get(nt) if same else None))
 
         out_dict = {}
         for nt in self.node_types:

@@ -14,8 +14,14 @@ out_v = root(x_v) + sum_r mean (or sum) over the edges of r into v of
 x_src @ W_r; then a linear head on the drug rows. Relations are the
 batch's edge types in metadata order, matched by position.
 
-Both run on the plain segment ops, as the JAX modules do: there is no
-kernel here.
+Both run on the segment ops of `ops/segment.py`, as the JAX modules do.
+When the KG batch carries its K2 layouts (`data/kg.py`), every sum is
+kernel K2: HAN's softmax denominators and message sums over each edge
+type's destination boundary table, RGCN's per-relation sums over the same
+table (a relation's destinations are one node type's block of the
+flattened table, so its sums land in that block), and the gathers'
+backward (`ops/gather.py`: the destination side over that table, the
+source side over the source-sorted layout when the batch has it).
 """
 from __future__ import annotations
 
@@ -27,8 +33,21 @@ from torch import nn
 
 from ..config import HANConfig
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
+from ..ops.gather import gather_rows_sorted
 from ..ops.segment import segment_mean, segment_softmax, segment_sum
 from .mlp import activation
+
+
+def _gather(table: torch.Tensor, g: HeteroKGBatch, ek: str,
+            side: str) -> torch.Tensor:
+    """`table[edge_src]` (side 'src') or `table[edge_dst]` ('dst') of edge
+    type `ek`, with a K2 backward when the batch has that side's layout."""
+    idx = getattr(g, f"edge_{side}")[ek]
+    starts = getattr(g, f"edge_{side}_starts").get(ek)
+    if starts is None:
+        return table[idx.long()]
+    order = g.edge_src_order[ek] if side == "src" else None
+    return gather_rows_sorted(table, idx, order, starts)
 
 
 class HANConv(nn.Module):
@@ -63,22 +82,24 @@ class HANConv(nn.Module):
         for et in self.edge_types:
             src_t, _, dst_t = et
             ek = edge_key(et)
-            src, dst = g.edge_src[ek].long(), g.edge_dst[ek].long()
+            dst = g.edge_dst[ek].long()
             mask = g.edge_mask[ek]
             n_dst = g.num_nodes(dst_t)
-            x_src = proj[src_t][src]
+            starts = g.edge_dst_starts.get(ek)
+            x_src = _gather(proj[src_t], g, ek, "src")
             logits = F.leaky_relu(
                 torch.einsum("ehd,hd->eh", x_src,
                              getattr(self, f"att_src__{ek}"))
-                + torch.einsum("ehd,hd->eh", proj[dst_t][dst],
+                + torch.einsum("ehd,hd->eh", _gather(proj[dst_t], g, ek, "dst"),
                                getattr(self, f"att_dst__{ek}")),
                 negative_slope=self.negative_slope)
             dst_safe = torch.where(mask, dst, torch.full_like(dst, n_dst))
-            alpha = segment_softmax(logits, dst_safe, n_dst, mask=mask)
+            alpha = segment_softmax(logits, dst_safe, n_dst, mask=mask,
+                                    starts=starts)
             alpha = F.dropout(alpha, self.dropout, self.training)
             per_type[dst_t].append(segment_sum(
-                x_src * alpha.unsqueeze(-1), dst_safe, n_dst).reshape(
-                    n_dst, self.F))
+                x_src * alpha.unsqueeze(-1), dst_safe, n_dst,
+                starts=starts).reshape(n_dst, self.F))
         out_dict = {}
         for nt in self.node_types:
             if not per_type[nt]:
@@ -161,12 +182,26 @@ class RGCNEncoder(nn.Module):
                 ek = edge_key(et)
                 w_r = torch.einsum("b,bio->io", coeffs[ri], bases)
                 mask = g.edge_mask[ek]
-                src = g.edge_src[ek].long() + offsets[src_t]
-                dst = g.edge_dst[ek].long() + offsets[dst_t]
-                msg = (x[src] @ w_r).masked_fill(~mask.unsqueeze(-1), 0.0)
-                dst_safe = torch.where(mask, dst, torch.full_like(dst, total))
                 reduce = segment_mean if self.aggr == "mean" else segment_sum
-                agg = agg + reduce(msg, dst_safe, total)
+                starts = g.edge_dst_starts.get(ek)
+                if starts is None:
+                    src = g.edge_src[ek].long() + offsets[src_t]
+                    dst = g.edge_dst[ek].long() + offsets[dst_t]
+                    msg = (x[src] @ w_r).masked_fill(~mask.unsqueeze(-1),
+                                                     0.0)
+                    dst_safe = torch.where(mask, dst,
+                                           torch.full_like(dst, total))
+                    agg = agg + reduce(msg, dst_safe, total)
+                    continue
+                # the relation's sources and destinations are blocks of the
+                # flattened table: gather from the source block, sum into
+                # the destination block
+                lo, n_src = offsets[src_t], g.num_nodes(src_t)
+                msg = (_gather(x[lo:lo + n_src], g, ek, "src") @ w_r
+                       ).masked_fill(~mask.unsqueeze(-1), 0.0)
+                lo, n_dst = offsets[dst_t], g.num_nodes(dst_t)
+                part = reduce(msg, g.edge_dst[ek], n_dst, starts=starts)
+                agg = agg + F.pad(part, (0, 0, lo, total - lo - n_dst))
             x = getattr(self, f"root_{li}")(x) + agg
             if li < self.num_layers - 1:
                 x = self.act(x)

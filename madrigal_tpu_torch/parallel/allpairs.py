@@ -49,10 +49,12 @@ def sharded_rank_tensor(mesh, z, w_sym, chunk_per_device: int = 4,
     `out` (allocated there when None) and returns it. Other ranks return
     None. The float32 default gives eval.ranks.rank_tensor's ranks
     exactly: each outcome's scores and ranks do not depend on the block
-    it falls in. Every rank ranks the first rank's `z` (it is broadcast):
-    embeddings computed on each rank differ in their last bits (the KG
-    pass sums with atomic adds on the card), and near-tied scores would
-    swap ranks between the ranks' outcomes."""
+    it falls in. Every rank ranks the first rank's `z` (it is broadcast,
+    one [N, 128] table): the ranks' own embeddings have the same bits
+    when they come from the same pass (every encoder sum runs on K2 in a
+    fixed order), and the broadcast keeps the export one table's when a
+    caller hands the ranks tables made otherwise, where near-tied scores
+    would swap ranks between the ranks' outcomes."""
     axis = _label_axis(mesh)
     group = axis_group(axis, mesh)
     d, r = axis_size(mesh, axis), axis_rank(mesh, axis)

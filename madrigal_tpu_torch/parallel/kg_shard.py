@@ -7,9 +7,13 @@ holds a contiguous share of every edge type's edge arrays (the node
 tables and the weights are replicated), gathers, scores and aggregates
 only its share, and the per-destination softmax statistics and message
 sums merge over the axis's process group (`ops/segment.py` `group=`,
-`parallel/collectives.py`). The source-sorted layouts are dropped first:
-they index the global edge axis, so a sharded HGT's gather backward is
-the plain one and K2 does not run. Gradients: each rank's backward
+`parallel/collectives.py`). The batch's K2 layouts index the global edge
+axis, so each share gets its own (`kg.kg_layouts` over the share's
+arrays): the global arrays are sorted by destination with the real edges
+first, so each contiguous share is too, and each rank's sums, the
+gathers' backward included, run on K2; the all-reduce of the partial
+sums, over a fixed group, adds them in a fixed order. Gradients: each
+rank's backward
 leaves every replicated weight a share of the global gradient, summed
 once by the trainers' all-reduce (`collectives` module docstring), so the
 encoder weights get exactly the full-graph gradients.
@@ -26,22 +30,39 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data.kg import HeteroKGBatch
+from ..data.kg import HeteroKGBatch, kg_layouts
+
+LAYOUT_FIELDS = ("edge_src_order", "edge_src_starts", "edge_dst_starts",
+                 "dst_type_order", "dst_type_starts")
 
 
 def strip_src_arenas(kg: HeteroKGBatch) -> HeteroKGBatch:
-    """Drop the source-sorted layouts (K2's), which index the GLOBAL edge
-    axis, before sharding."""
-    if kg.edge_src_order or kg.edge_src_starts:
-        return dataclasses.replace(kg, edge_src_order={}, edge_src_starts={})
+    """Drop the K2 layouts, which index the GLOBAL edge axis, before
+    sharding."""
+    if any(getattr(kg, f) for f in LAYOUT_FIELDS):
+        return dataclasses.replace(kg, **{f: {} for f in LAYOUT_FIELDS})
     return kg
+
+
+def share_layouts(kg: HeteroKGBatch, src_sort: bool) -> HeteroKGBatch:
+    """`kg` (one rank's share, on its device) with the K2 layouts of its
+    own edge arrays, built on the host; with src_sort also the
+    source-sorted ones."""
+    host = [{k: t.cpu().numpy() for k, t in getattr(kg, f).items()}
+            for f in ("edge_src", "edge_dst", "edge_mask")]
+    n_nodes = {nt: kg.num_nodes(nt) for nt in kg.node_feats}
+    dev = kg.edge_src[next(iter(kg.edge_src))].device
+    return dataclasses.replace(kg, **{
+        name: {k: torch.from_numpy(v).to(dev) for k, v in field.items()}
+        for name, field in kg_layouts(kg.metadata, *host, n_nodes,
+                                      src_sort).items()})
 
 
 def pad_kg_edges_to_multiple(kg: HeteroKGBatch, m: int) -> HeteroKGBatch:
     """Re-pad every edge type's arrays to a multiple of `m` rows, so each
     of m shards is equal. Padding rows carry src = dst = 0 with mask
     False; the segment ops drop them, so the numerics are unchanged. Also
-    strips the source-sorted layouts (strip_src_arenas)."""
+    strips the K2 layouts (strip_src_arenas)."""
     kg = strip_src_arenas(kg)
     if m <= 1:
         return kg
@@ -72,12 +93,16 @@ def device_put_kg_sharded(kg: HeteroKGBatch, mesh, axis: str,
     """This rank's share of `kg` (every rank passes the same batch): each
     edge type's arrays padded to a multiple of the axis size and cut to
     the rank's contiguous part; node tables and the drug index map whole.
-    Everything is moved to `device` (default: the rank's)."""
+    Everything is moved to `device` (default: the rank's). When `kg` is
+    sorted by destination (it carries destination layouts), the share
+    gets its own layouts, and the source-sorted ones when `kg` had
+    them."""
     from .mesh import axis_rank, axis_size
     from .multihost import rank_device
 
     dev = torch.device(device) if device is not None else rank_device()
     n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+    sorted_edges, src_sort = bool(kg.edge_dst_starts), bool(kg.edge_src_order)
     kg = pad_kg_edges_to_multiple(kg, n)
 
     def place(t, spec):
@@ -91,7 +116,8 @@ def device_put_kg_sharded(kg: HeteroKGBatch, mesh, axis: str,
         value = getattr(kg, name)
         fields[name] = (place(value, spec) if not isinstance(spec, dict)
                         else {k: place(value[k], s) for k, s in spec.items()})
-    return dataclasses.replace(kg, **fields)
+    share = dataclasses.replace(kg, **fields)
+    return share_layouts(share, src_sort) if sorted_edges else share
 
 
 def sharded_kg_apply(mesh, apply_fn: Callable, axis: str = "dp"

@@ -11,9 +11,11 @@ batches, so BatchNorm statistics and dropout draws are the single
 device's. After the backward the replicated parameters' gradients are
 summed over every rank and each decoder shard's over 'dp' (the rule in
 `collectives.py`), the first rank's BatchNorm statistics are copied to
-the others (the card's atomic adds make each rank's differ in their
-last bits), and the optimizer steps each rank's parameters as one
-device would step the whole (LARS with the whole decoder's norms).
+the others (each rank's replicated forward computes the same bits, since
+every encoder sum runs on K2 in a fixed order; the copy keeps the
+replicas equal by construction, at the cost of one small broadcast a
+step), and the optimizer steps each rank's parameters as one device
+would step the whole (LARS with the whole decoder's norms).
 
 `shard_cl_pretrainer` splits stage 2's batch over 'dp' on both paths:
 every rank draws the whole batch from the shared seed and keeps its
@@ -164,8 +166,9 @@ def shard_finetune_trainer(trainer, mesh, kg_shard_axis=None):
     def reduce_grads():
         all_reduce_grads(replicated, world)
         all_reduce_grads([new], dp_group)
-        # each rank's replicated forward updated its BatchNorm statistics;
-        # atomic adds on the card make them differ in their last bits
+        # each rank's replicated forward updated its BatchNorm statistics
+        # with the same bits; the first rank's are copied so the replicas
+        # stay equal whatever the ranks ran (module docstring)
         broadcast_tensors(buffers, world)
 
     trainer.loss_group = world

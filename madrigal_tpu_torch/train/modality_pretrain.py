@@ -267,7 +267,7 @@ class ChemCPAAdaptTrainer(_AdamTrainer):
     basal latent use the running BatchNorm statistics as they were before
     the step (eval mode, computed before the train-mode reconstruction
     moves them), and the adversaries' own statistics never move. The
-    frozen drug_embeddings table is in no optimizer
+    frozen drug_embeddings table is in no optimizer and takes no gradient
     (chemCPA/embedding.py:10-20)."""
 
     def __init__(self, cfg: ChemCPAConfig, lr: float = 1e-3,
@@ -287,7 +287,9 @@ class ChemCPAAdaptTrainer(_AdamTrainer):
         groups = {"ae": [], "adv": []}
         for name, p in self.model.named_parameters():
             top = name.split(".")[0]
-            if top not in frozen:
+            if top in frozen:
+                p.requires_grad_(False)
+            else:
                 groups["adv" if top in ADVERSARIES else "ae"].append(p)
         self.optimizer = torch.optim.Adam(groups["ae"], lr=lr, eps=1e-8)
         self.adv_optimizer = (torch.optim.Adam(groups["adv"], lr=adversary_lr,

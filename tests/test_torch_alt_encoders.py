@@ -286,7 +286,7 @@ def test_gat_hgt_trainer_three_steps_match_jax(monkeypatch):
     calls = []
 
     def counted(*args):
-        calls.append(args[0].dtype)
+        calls.append((args[0].dtype, args[0].shape[1]))
         return sorted_segment_sum(*args)
 
     monkeypatch.setattr(t_gather, "sorted_segment_sum", counted)
@@ -313,7 +313,10 @@ def test_gat_hgt_trainer_three_steps_match_jax(monkeypatch):
                               "batch_stats": jt.state.batch_stats})
     assert_three_steps_match_jax(jt, t_ft.FinetuneTrainer(cfg, bt, kt,
                                                           model))
-    assert calls == [torch.float32] * (3 * (2 + 7))
+    # every gather transpose reduces f32 rows; the fused k|v table's
+    # (2 x 64 wide) once per step and (layer, edge type) reaching drugs
+    assert {dt for dt, _ in calls} == {torch.float32}
+    assert [w for _, w in calls].count(128) == 3 * (2 + 7)
 
 
 @pytest.mark.parametrize("extra", [

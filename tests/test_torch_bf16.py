@@ -71,7 +71,13 @@ def hgt_kw(scope, compute_dtype="bfloat16", **kw):
 
 @pytest.mark.parametrize("scope", ["per_edge_type", "global"])
 def test_hgt_bf16(data, scope):
-    dt, _, kj, _, kt = data
+    """On the destination-sorted KG batch of both packages (the port's
+    default, the JAX package's sort_edges)."""
+    from madrigal_tpu.data.kg import build_kg_batch as j_build
+
+    dt, _, _, _, kt = data
+    kj = j_build(dt.kg_node_feats, dt.kg_edge_indices, dt.kg_drug_ids,
+                 sort_edges=True)
     schema = kg_schema(dt.kg_node_feats, dt.kg_edge_indices)
     jm = j_hgt.HGTEncoder(cfg=j_config.HGTConfig(**hgt_kw(scope)),
                           embed_dim=8)
@@ -115,7 +121,12 @@ def test_hgt_bf16_backward_hands_k2_bf16_rows(data, monkeypatch):
             torch.nn.init.normal_(p, 0.0, 0.2)
         tm(kt)["drug"].square().sum().backward()
         grads[remat] = {k: p.grad for k, p in tm.named_parameters()}
-    assert seen == [(torch.bfloat16, 128)] * (2 * (2 + 7))
+    # the fused k|v table's transposes (128 wide) and the destination
+    # gathers' (64) reduce bf16 rows; the softmax denominators' (4) f32
+    assert [s for s in seen if s[1] == 128] == [(torch.bfloat16, 128)] * (
+        2 * (2 + 7))
+    assert set(seen) == {(torch.bfloat16, 128), (torch.bfloat16, 64),
+                         (torch.float32, 4)}
     reached = {k for k, g in grads[False].items() if g is not None}
     assert reached == {k for k, g in grads[True].items() if g is not None}
     for k in reached:

@@ -324,9 +324,10 @@ def test_stage2_step_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_bf16_hgt_step_k2_on_bf16_rows_matches_plain(cuda, monkeypatch):
-    """The HGT with compute_dtype='bfloat16' on the card: its backward
-    hands K2 bf16 rows, once per (layer, edge type) reaching the drug
-    table, and every gradient is within 2^-8 (bf16's unit roundoff) of
+    """The HGT with compute_dtype='bfloat16' on the card: its source
+    gathers' backward hands K2 bf16 rows, once per (layer, edge type)
+    reaching the drug table (its destination gathers' too, and the
+    denominators' gathers f32 rows), and every gradient is within 2^-8 (bf16's unit roundoff) of
     its tensor's largest of the same step through K2's plain version (the
     same f32 sums in another order, each rounded to bf16)."""
     from madrigal_tpu_torch import config as C
@@ -346,6 +347,10 @@ def test_bf16_hgt_step_k2_on_bf16_rows_matches_plain(cuda, monkeypatch):
     for p in model.parameters():
         torch.nn.init.normal_(p, 0.0, 0.1)
     seen, grads = [], {}
+    # the forward's sums (2 a layer and edge type) run on K2 in both runs;
+    # the gathers' transposes (3 a live edge type: source, destination,
+    # denominators) on K2 or on its plain version
+    forward = 2 * cfg.num_layers * len(ds.kg_edge_indices)
     for name, reduce in (("k2", ts.sorted_segment_sum),
                          ("plain", ts.sorted_segment_sum_plain)):
         def counted(rows, *args, reduce=reduce):
@@ -357,12 +362,15 @@ def test_bf16_hgt_step_k2_on_bf16_rows_matches_plain(cuda, monkeypatch):
         before = ts.sorted_segment_sum.launches
         model(kg)["drug"].square().sum().backward()
         torch.cuda.synchronize()
-        assert ts.sorted_segment_sum.launches - before == (
-            9 if name == "k2" else 0)
+        assert ts.sorted_segment_sum.launches - before == forward + (
+            3 * 9 if name == "k2" else 0)
         grads[name] = {k: p.grad.float().cpu()
                        for k, p in model.named_parameters()
                        if p.grad is not None}
-    assert seen == [(torch.bfloat16, 256)] * 18
+    assert [s for s in seen if s[1] == 256] == [(torch.bfloat16, 256)] * 18
+    assert sorted(set(seen), key=str) == sorted(
+        {(torch.bfloat16, 256), (torch.bfloat16, 128), (torch.float32, 4)},
+        key=str)
     assert grads["k2"].keys() == grads["plain"].keys()
     for k, ref in grads["plain"].items():
         torch.testing.assert_close(grads["k2"][k], ref, rtol=0,
@@ -418,7 +426,7 @@ def test_two_gloo_ranks_on_card_match_one_card(cuda, tmp_path):
     label-sharded ranks equal rank_tensor's on the card exactly, and a
     narrow three-forward finetune step on meshes 2 x 1 and 1 x 2, the KG
     replicated and edge-sharded, has the one-card step's losses within
-    1e-4 relative; K2 runs in the replicated KG's backward only."""
+    1e-4 relative; K2 carries the encoders' sums on every path."""
     import json
     import sys
 
@@ -432,3 +440,253 @@ def test_two_gloo_ranks_on_card_match_one_card(cuda, tmp_path):
     for key in ("1_None", "1_dp", "2_None", "2_dp"):
         assert out[key] <= 1e-4, (key, out)
     assert out["k2"] > 0
+
+
+# ---------------------------------------------------- reproducibility
+# Every sum the encoders make runs on K2 over sorted layouts (the KG
+# batch sorted by destination, the molecule batches' layouts), so a pass
+# gives the same bits on every run.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["uniform", "hub", "zipf"])
+@pytest.mark.parametrize("w", [4, 128, 256])
+def test_segment_sum_kernel_skewed_and_narrow(cuda, draw, w):
+    """K2 at the widths of its new uses (4: the softmax denominators, one
+    column a head; 128: the messages; 256: the fused k|v table) on rows
+    grouped uniformly, with one hub segment holding a quarter of them,
+    and by a Zipf-like draw. The rows hold small integers, so every f32
+    sum is exact in any order: K2 equals its plain version exactly."""
+    g = torch.Generator(device=cuda).manual_seed(w)
+    e, n = 200_000, 5_000
+    if draw == "zipf":
+        weights = torch.arange(1, n + 1, device=cuda,
+                               dtype=torch.float64) ** -1.1
+        ids = torch.multinomial(weights, e, replacement=True, generator=g)
+    else:
+        ids = torch.randint(0, n, (e,), generator=g, device=cuda)
+        if draw == "hub":
+            ids[:e // 4] = n // 3
+    ids = ids.sort()[0]
+    starts = torch.searchsorted(
+        ids, torch.arange(n + 1, device=cuda)).to(torch.int32)
+    data = torch.randint(-8, 9, (e + 100, w), generator=g,
+                         device=cuda).float()
+    got = ts.sorted_segment_sum(data, starts, n)
+    assert torch.equal(got, ts.sorted_segment_sum(data, starts, n))
+    assert torch.equal(got, ts.sorted_segment_sum_plain(data, starts, n))
+
+
+@pytest.mark.cuda
+def test_molecule_layout_sums_match_plain(cuda):
+    """K2 over the molecule batch's layouts (the GIN's and GAT's message
+    sums and denominators, the readout) against its plain version."""
+    from madrigal_tpu_torch.data.molgraph import pack_molecules
+    from madrigal_tpu_torch.data.synthetic import make_dataset
+
+    mols = pack_molecules(make_dataset(num_drugs=64, seed=5).molecules,
+                          device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for n_rows, w, starts, n in (
+            (mols.num_edges_padded, 128, mols.edge_dst_starts,
+             mols.num_nodes_padded),
+            (mols.num_edges_padded, 4, mols.edge_dst_starts,
+             mols.num_nodes_padded),
+            (mols.num_nodes_padded, 128, mols.node_graph_starts,
+             mols.num_graphs)):
+        data = torch.randn(n_rows, w, generator=g, device=cuda)
+        got = ts.sorted_segment_sum(data, starts, n)
+        ref = ts.sorted_segment_sum_plain(data, starts, n)
+        assert (got - ref).abs().max().item() <= 1e-5 * max(
+            ref.abs().max().item(), 1.0)
+
+
+def _flagship(num_labels, remat=False):
+    """The flagship configuration of chip_smoke.py, dropout 0, its
+    triples scored in label chunks as the training runs score them."""
+    import dataclasses
+
+    from chip_smoke import LABEL_CHUNK, flagship_config
+
+    cfg = flagship_config(num_labels, dropout=False)
+    enc = cfg.model.encoder
+    return dataclasses.replace(
+        cfg, label_chunk_triples=LABEL_CHUNK,
+        model=dataclasses.replace(cfg.model, encoder=dataclasses.replace(
+            enc, hgt=dataclasses.replace(enc.hgt,
+                                         remat_edge_types=remat))))
+
+
+def _scaled(shrink):
+    from madrigal_tpu_torch.cli.common import reference_scale_kwargs
+    from madrigal_tpu_torch.data.synthetic import (
+        make_reference_scale_dataset)
+
+    return make_reference_scale_dataset(seed=0,
+                                        **reference_scale_kwargs(shrink))
+
+
+def _scaled_data(cuda, ds, src_sort=True, sorted_layouts=True):
+    """`ds`'s training batch (chip_smoke.py's 80% split) and its KG batch
+    on the card. Without sorted_layouts, the KG in its input order and the
+    molecule batches without their layouts: the sums the port ran before
+    K2 carried them (index_add_)."""
+    import dataclasses
+
+    from chip_smoke import split_rows
+    from madrigal_tpu_torch.data.collate import DDICollator
+    from madrigal_tpu_torch.data.kg import build_kg_batch
+
+    batch, _ = DDICollator(ds, split="train", device=cuda)(
+        split_rows(ds)["train"], build_kg=False)
+    kg = build_kg_batch(ds.kg_node_feats, ds.kg_edge_indices,
+                        ds.kg_drug_ids, device=cuda, src_sort=src_sort,
+                        sort_edges=sorted_layouts)
+    if not sorted_layouts:
+        plain = {k: None for k in ("edge_dst_order", "edge_dst_starts",
+                                   "edge_src_order", "edge_src_starts",
+                                   "node_graph_starts")}
+        head = dataclasses.replace(batch.head, mols=dataclasses.replace(
+            batch.head.mols, **plain))
+        tail = (head if batch.tail is batch.head else dataclasses.replace(
+            batch.tail, mols=dataclasses.replace(batch.tail.mols, **plain)))
+        batch = dataclasses.replace(batch, head=head, tail=tail)
+    return batch, kg
+
+
+@pytest.mark.cuda
+def test_serving_forward_twice_bit_identical(cuda):
+    """The flagship's KG pass and drug encodings (embed_all_drugs) twice,
+    at the reference scale / 8: the same bits."""
+    from madrigal_tpu_torch.data.collate import DDICollator
+
+    ds = _scaled(8)
+    batch, kg = _scaled_data(cuda, ds, src_sort=False)
+    model = _trainer(cuda, ds, batch, kg,
+                     _flagship(ds.num_labels)).model.eval()
+    coll = DDICollator(ds, device=cuda)
+    first = tp.embed_all_drugs(model, coll, kg)
+    assert np.isfinite(first).all()
+    assert np.array_equal(first, tp.embed_all_drugs(model, coll, kg))
+
+
+def _trainer(cuda, ds, batch, kg, cfg):
+    from madrigal_tpu_torch.data.kg import kg_schema
+    from madrigal_tpu_torch.models.encoder import build_model, init_weights
+    from madrigal_tpu_torch.train.finetune import (
+        FinetuneTrainer,
+        training_model_config,
+    )
+
+    model = build_model(training_model_config(cfg),
+                        *kg_schema(ds.kg_node_feats, ds.kg_edge_indices),
+                        device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    return FinetuneTrainer(cfg, batch, kg, model.to(cuda))
+
+
+@pytest.mark.cuda
+def test_training_step_twice_bit_identical(cuda):
+    """One flagship training step (the reference scale / 8) run twice
+    from the same weights, optimizer state, mask sampler and generator
+    states: the same loss, parameters, buffers and optimizer state."""
+    from chip_smoke import repeat_step
+
+    ds = _scaled(8)
+    batch, kg = _scaled_data(cuda, ds)
+    trainer = _trainer(cuda, ds, batch, kg, _flagship(ds.num_labels))
+    trainer.train_epoch()  # the optimizer's state is not empty
+    assert repeat_step(trainer)["tensors"] > 0
+
+
+@pytest.mark.cuda
+def test_training_step_runs_no_nondeterministic_op(cuda):
+    """A flagship training step (the reference scale / 64) and a serving
+    pass under torch.use_deterministic_algorithms(True, warn_only=True):
+    PyTorch warns on no operation that lacks a deterministic form, but
+    two. cuBLAS's warning about CUBLAS_WORKSPACE_CONFIG concerns work
+    spread over several streams, and the step runs on one. The segment
+    maximum of the softmax (`scatter_reduce_` amax, `ops/segment.py`)
+    takes a maximum, which no order changes, and carries no gradient."""
+    import warnings
+
+    from madrigal_tpu_torch.data.collate import DDICollator
+
+    ds = _scaled(64)
+    batch, kg = _scaled_data(cuda, ds)
+    trainer = _trainer(cuda, ds, batch, kg, _flagship(ds.num_labels))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_epoch()
+            tp.embed_all_drugs(trainer.model.eval(),
+                               DDICollator(ds, device=cuda), kg)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    found = sorted({str(w.message).split("\n")[0] for w in caught
+                    if "deterministic" in str(w.message)
+                    and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)
+                    and "scatter_reduce" not in str(w.message)})
+    assert not found, found
+
+
+@pytest.mark.cuda
+def test_f1_cost_kg_pass_and_step(cuda, monkeypatch):
+    """The cost of the repair at full scale (prints one JSON line; run it
+    with -s): the flagship's full-KG pass (`kg_drug_table`, no gradient)
+    and one training step with the HGT remat, their device memory peaks,
+    on the sorted layouts (K2), on the input-order batches (the sums on
+    index_add_, as before), and on those under
+    torch.use_deterministic_algorithms(True) (index_add_'s deterministic
+    form; warn_only, its warnings counted)."""
+    import json
+    import time
+    import warnings
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    out = {"card": torch.cuda.get_device_name(0)}
+    ds = _scaled(1)
+    for mode in ("sorted", "index_add", "deterministic"):
+        batch, kg = _scaled_data(cuda, ds, sorted_layouts=mode == "sorted")
+        trainer = _trainer(cuda, ds, batch, kg,
+                           _flagship(ds.num_labels, remat=True))
+        torch.cuda.empty_cache()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "deterministic":
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                row = {}
+                with torch.no_grad():
+                    trainer.model.encoder.kg_drug_table(kg)  # warm-up
+                    times = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        trainer.model.encoder.kg_drug_table(kg)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                row["kg_pass_s"] = times
+                torch.cuda.reset_peak_memory_stats()
+                trainer.train_epoch()  # warm-up
+                times = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_epoch()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                row["step_s"] = times
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            finally:
+                torch.use_deterministic_algorithms(False)
+        row["warnings"] = sorted({str(w.message).split("\n")[0][:160]
+                                  for w in caught
+                                  if "determinis" in str(w.message)})
+        out[mode] = row
+        del trainer, batch, kg
+        torch.cuda.empty_cache()
+    print(json.dumps({"f1_cost": out}), flush=True)
+    assert all(np.isfinite(out[m]["step_s"]).all() for m in
+               ("sorted", "index_add", "deterministic"))

@@ -1,7 +1,8 @@
 """The port's data plane equals the JAX package's: the copied synthetic
 generator and negative sampler (array for array, edge-table column for
-column), and the collator's drug batches, plain-layout KG batch and
-collated DDI batches."""
+column), and the collator's drug batches, KG batch (against the JAX
+package's destination-sorted `sort_edges=True` batch) and collated DDI
+batches."""
 import dataclasses
 
 import numpy as np
@@ -18,10 +19,18 @@ from madrigal_tpu_torch.data import synthetic as t_syn
 EDGE_COLUMNS = ["head", "tail", "label_indexed", "neg_head", "neg_tail"]
 
 
+# the molecule batch's K2 layouts, which only the port's batch carries
+# (tests/test_torch_sorted_layouts.py checks them)
+PORT_ONLY = {"edge_dst_order", "edge_dst_starts", "edge_src_order",
+             "edge_src_starts", "node_graph_starts"}
+
+
 def assert_same(j, t, where="batch"):
     """Recursively compare a JAX-package value with the port's."""
     if dataclasses.is_dataclass(t):
         for f in dataclasses.fields(t):
+            if f.name in PORT_ONLY and not hasattr(j, f.name):
+                continue
             assert_same(getattr(j, f.name), getattr(t, f.name),
                         f"{where}.{f.name}")
     elif isinstance(t, dict):
@@ -101,7 +110,9 @@ def test_drug_and_kg_batches_equal(datasets):
     ct = t_collate.DDICollator(dt, split="train", device="cpu")
     ids = np.array([3, 0, 17, 5, 5, 11])
     assert_same(cj.drug_batch(ids), ct.drug_batch(ids), "drug_batch")
-    kj, kt = cj.kg_batch(), ct.kg_batch()
+    # the port's KG batch is sorted by destination, as the JAX package's
+    # sort_edges sorts it
+    kj, kt = cj.kg_batch(sort_edges=True), ct.kg_batch()
     for name in ("node_feats", "edge_src", "edge_dst", "edge_mask",
                  "drug_index_map"):
         assert_same(getattr(kj, name), getattr(kt, name), name)
@@ -151,7 +162,8 @@ def test_train_collator_full_table_src_sort_and_between_equal():
                                kg_src_sort=True, full_drug_table=True)
     ct = t_collate.DDICollator(dt, split="train", seed=2, device="cpu",
                                kg_src_sort=True, full_drug_table=True)
-    (bj, kj), (bt, kt) = cj(), ct()
+    (bj, _), (bt, kt) = cj(build_kg=False), ct()
+    kj = cj.kg_batch(sort_edges=True)
     assert_same(bj, bt, "DDIBatch")
     assert bt.head is bt.tail  # one cached full-table drug batch
     for name in ("edge_src_order", "edge_src_starts", "edge_src",

@@ -53,10 +53,14 @@ def assert_same_subgraph(t_kg, j_kg):
         k = edge_key(et)
         tm, jm = t_kg.edge_mask[k].numpy(), np.asarray(j_kg.edge_mask[k])
         assert tm.sum() == jm.sum()
+        # the port's subgraph is sorted by destination: the JAX package's
+        # edges in the order its build_kg_batch(sort_edges=True) gives
+        order = np.argsort(np.asarray(j_kg.edge_dst[k])[jm], kind="stable")
         for attr in ("edge_src", "edge_dst"):
             np.testing.assert_array_equal(
                 getattr(t_kg, attr)[k].numpy()[tm],
-                np.asarray(getattr(j_kg, attr)[k])[jm])
+                np.asarray(getattr(j_kg, attr)[k])[jm][order])
+        assert k in t_kg.edge_dst_starts
 
 
 @pytest.mark.parametrize("num_neighbors,num_layers,seeds", [
