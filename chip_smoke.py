@@ -42,11 +42,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
      gathers' backward, and the sums K2 carries besides, k2_sum_checks:
      the 128-wide messages f32 and bf16 and the 4-wide softmax
      denominators at ppi, the molecule batch's sums and readout, a hub
-     segment and a Zipf-like draw; the source gathers of one training
-     step, 15 launches, and of one stage-1 kg step, 34), timed with CUDA
-     events beside the plain version, one PyTorch call computing the same
-     function (`library_ms`, timed only here), `index_add_` (the sums the
-     port ran before K2 carried them) and the card's bound;
+     segment and a Zipf-like draw on small-integer and on randn rows,
+     chemCPA's covariate segments, and segments of at most P and P + 1
+     rows; the source gathers of one training step, 15 launches, and of
+     one stage-1 kg step, 34; K2 everywhere also equal bit for bit to
+     `sorted_segment_sum_ordered`, its order of the sums), timed with
+     CUDA events beside the plain version, one PyTorch call computing
+     the same function (`library_ms`, timed only here), `index_add_`
+     (the sums the port ran before K2 carried them) and the card's
+     bound;
   4. small: the serving path on a small dataset on the card against the
      same model on the CPU;
   5. serving: the serving path at full width, with every kernel's launch
@@ -222,6 +226,15 @@ runs phases 1-3 only (device, build with nvcc's -Xptxas -v report, and
 the kernel checks and timings) and prints their lines, with no
 `{"kernels": [...]}` line and no ok line: the quick loop for kernel work.
 
+    python3 chip_smoke.py --k2_against TREE [TREE ...]
+
+times K2 through the `sorted_segment_sum` of each TREE (the root of
+another checkout of the port, such as its parent commit unpacked under
+`build/`) and of this checkout, in turns, at the shapes of K2's uses
+(phase_k2_against): each tree's wrapper is imported from that tree and
+builds that tree's kernel, so each is called as its own code calls it.
+It prints no ok line.
+
     python3 chip_smoke.py --pretrain
 
 builds K2 and runs phases 9, 13 (without the stage-1 warm start) and
@@ -260,6 +273,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
+import importlib.util
 import inspect
 import io
 import json
@@ -282,6 +297,7 @@ from madrigal_tpu_torch.cli import predict as cli_predict
 from madrigal_tpu_torch.cli import pretrain as cli_pretrain
 from madrigal_tpu_torch.cli import train_ddi as cli_train_ddi
 from madrigal_tpu_torch.cli.common import reference_scale_kwargs
+from madrigal_tpu_torch.constants import NUM_CELL_LINES
 from madrigal_tpu_torch.data import datasets, native_featurizer
 from madrigal_tpu_torch.data import kg as kg_lib
 from madrigal_tpu_torch.data.collate import DDICollator
@@ -438,6 +454,12 @@ K2_MSG_WIDTH, K2_HEADS = 128, 4
 K2_HUB_SHARE, K2_ZIPF_A = 0.25, 1.1
 # the molecule batch of the serving path's drug encoding (embed_all_drugs)
 K2_MOL_DRUGS = 1024
+# chemCPA's covariate lookup (models/encoder.py): its embedding's gradient
+# is one K2 launch over NUM_CELL_LINES segments of one row a drug, 128
+# wide; the full-batch stage-3 step (bf16_train) encodes every drug
+K2_COV_DRUGS = NUM_DRUGS
+# the segments of the longest-is-P and longest-is-P + 1 checks
+K2_ABOUT_P_SEGMENTS = 2000
 
 
 def emit(obj) -> None:
@@ -659,13 +681,15 @@ def k2_bound(e_real: int, n: int, w: int, dtype: torch.dtype):
 
 
 def k2_inputs(e_real: int, e_pad: int, n: int, dtype: torch.dtype,
-              seed: int, width: int = K2_WIDTH, draw: str = "uniform"):
+              seed: int, width: int = K2_WIDTH, draw: str = "uniform",
+              ints: bool | None = None):
     """[e_pad, width] rows grouped by a random segment id, rows past
     e_real trailing padding. `draw`: 'uniform' (as the synthetic KG's
     endpoints are; one segment left empty), 'hub' (one segment holds
     K2_HUB_SHARE of the rows, the rest uniform) or 'zipf' (segment k drawn
-    with weight k^-K2_ZIPF_A, as skewed degrees are). The hub and Zipf
-    rows hold small integers, whose f32 sums are exact in any order."""
+    with weight k^-K2_ZIPF_A, as skewed degrees are). With `ints` (by
+    default for the hub and Zipf draws) the rows hold small integers,
+    whose f32 sums are exact in any order; otherwise randn rows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     if draw == "zipf":
         w = torch.arange(1, n + 1, device="cuda",
@@ -680,36 +704,42 @@ def k2_inputs(e_real: int, e_pad: int, n: int, dtype: torch.dtype,
     ids = ids.sort()[0]
     starts = torch.searchsorted(
         ids, torch.arange(n + 1, device="cuda")).to(torch.int32)
-    if draw == "uniform":
-        data = torch.randn(e_pad, width, generator=g, device="cuda")
-    else:
+    if ints is None:
+        ints = draw != "uniform"
+    if ints:
         data = torch.randint(-8, 9, (e_pad, width), generator=g,
                              device="cuda").float()
+    else:
+        data = torch.randn(e_pad, width, generator=g, device="cuda")
     return data.to(dtype), starts
 
 
-def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0, width=K2_WIDTH,
-             draw="uniform"):
-    """k2_rows_check on k2_inputs' rows (hub and Zipf rows exactly)."""
-    data, starts = k2_inputs(e_real, e_pad, n, dtype, seed, width, draw)
-    row = k2_rows_check(data, starts, n, iters,
-                        rtol=1e-5 if draw == "uniform" else 0.0)
+def k2_check(e_real, e_pad, n, dtype, seed=0, iters=0, width=K2_WIDTH):
+    """k2_rows_check on k2_inputs' uniform randn rows."""
+    data, starts = k2_inputs(e_real, e_pad, n, dtype, seed, width)
+    row = k2_rows_check(data, starts, n, iters)
     del data, starts
     torch.cuda.empty_cache()
     return row
 
 
 def k2_rows_check(data, starts, n: int, iters: int = 0,
-                  rtol: float = 1e-5) -> dict:
-    """K2 on `data` [E, W] under `starts` against its plain version, within
-    rtol of max|plain| (1e-5: the same f32 sums in another order; bf16
-    rows widen to f32 exactly); two launches give the same bits. With
-    iters, also time the kernel, the plain version, the one-call PyTorch
+                  rtol: float | None = 1e-5) -> dict:
+    """K2 on `data` [E, W] under `starts`: equal bit for bit to
+    `sorted_segment_sum_ordered` (the plain form of its order of the
+    sums), and, unless rtol is None, within rtol of max|plain| of its
+    plain version (1e-5: the same f32 sums in another order; bf16 rows
+    widen to f32 exactly); two launches give the same bits. With iters,
+    also time the kernel, the plain version, the one-call PyTorch
     yardstick and `index_add_` (the sums the port ran before K2 carried
     them, on the rows widened to f32), beside the bytes bound."""
+    split = segment_sorted.split_rows()
     got = segment_sorted.sorted_segment_sum(data, starts, n)
     again = segment_sorted.sorted_segment_sum(data, starts, n)
-    ref = segment_sorted.sorted_segment_sum_plain(data, starts, n)
+    ordered = segment_sorted.sorted_segment_sum_ordered(data, starts, n,
+                                                        split)
+    ref = (ordered if rtol is None
+           else segment_sorted.sorted_segment_sum_plain(data, starts, n))
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
@@ -717,12 +747,16 @@ def k2_rows_check(data, starts, n: int, iters: int = 0,
     sizes = (starts[1:] - starts[:-1]).max().item() if n else 0
     row = {"E": data.shape[0], "E_real": e_real, "N": n, "W": data.shape[1],
            "in": DTYPE_NAME[data.dtype], "iters": iters, "max_abs_err": err,
-           "max_abs_plain": scale, "tol": rtol * scale,
-           "largest_segment": int(sizes),
+           "max_abs_plain": scale,
+           "tol": None if rtol is None else rtol * scale,
+           "largest_segment": int(sizes), "split_rows": split,
+           "scratch_bytes": -(-data.shape[0] // split) * data.shape[1] * 4,
+           "equal_ordered": bool(torch.equal(got, ordered)),
            "repeatable": bool(torch.equal(got, again))}
-    require(np.isfinite(err) and err <= rtol * scale and row["repeatable"],
-            f"K2 disagrees with its plain version: {row}")
-    del got, again, ref
+    require(np.isfinite(err) and (rtol is None or err <= rtol * scale)
+            and row["equal_ordered"] and row["repeatable"],
+            f"K2 disagrees with its plain version or its order: {row}")
+    del got, again, ref, ordered
     if iters:
         seg = segment_sorted.row_segments(starts, data.shape[0])
         wide = data.float()
@@ -824,20 +858,23 @@ def phase_k2_kernels():
     return checks
 
 
-def k2_sum_checks() -> list:
-    """K2 at the shapes of its uses beside the source gather's, each held
-    to its plain version and timed: at the full-scale KG's largest edge
-    type (ppi, dst-sorted), the messages of the HGT, HAN and RGCN (128
-    wide, f32; bf16 for the bf16 HGT) and the softmax denominators (one
-    column a head); at the smallest (drug-indication) the messages; over
-    the serving path's molecule batch (K2_MOL_DRUGS drugs), the GIN's and
-    GAT's message sums and readout (128 wide) and the GAT's
-    denominators; and the skewed cases at ppi's size: one hub segment
-    holding K2_HUB_SHARE of the rows, 128 and 4 wide, and a Zipf-like
-    draw, 128 wide."""
+def k2_uses():
+    """(fields, rows, starts, segments, timing repeats) of K2 at the shapes
+    of its uses beside the source gather's, made one at a time: at the
+    full-scale KG's largest edge type (ppi, dst-sorted), the messages of
+    the HGT, HAN and RGCN (128 wide, f32; bf16 for the bf16 HGT) and the
+    softmax denominators (one column a head); at the smallest
+    (drug-indication) the messages; over the serving path's molecule
+    batch (K2_MOL_DRUGS drugs), the GIN's and GAT's message sums and
+    readout (128 wide) and the GAT's denominators; the skewed cases at
+    ppi's size: one hub segment holding K2_HUB_SHARE of the rows, 128 and
+    4 wide, and a Zipf-like draw, 128 wide, each on small-integer rows
+    (timed) and on randn rows (not timed); chemCPA's covariate
+    embedding's gradient (K2_COV_DRUGS rows in each of NUM_CELL_LINES
+    segments, 128 wide); and segments about the kernel's split length P,
+    the longest P and the longest P + 1."""
     f32, bf16 = torch.float32, torch.bfloat16
     nodes, edges = reference_scale_kg_sizes()
-    rows = []
     for et in (("protein", "ppi", "protein"), ("drug", "indication",
                                                "disease")):
         e = edges[et]
@@ -850,12 +887,17 @@ def k2_sum_checks() -> list:
                      ("hub_denominators", K2_HEADS, f32, "hub"),
                      ("zipf_messages", K2_MSG_WIDTH, f32, "zipf")]
         for use, w, dt, draw in uses:
-            # the skewed cases take tens of ms a launch: fewer repeats
-            rows.append({"use": use, "edge_type": "__".join(et),
-                         "draw": draw, **k2_check(
-                             e, e_pad, nodes[et[2]], dt, seed=11,
-                             iters=50 if draw == "uniform" else 5,
-                             width=w, draw=draw)})
+            fields = {"use": use, "edge_type": "__".join(et), "draw": draw}
+            n = nodes[et[2]]
+            # the skewed cases took tens of ms a launch before P: fewer
+            # repeats
+            yield (fields, *k2_inputs(e, e_pad, n, dt, seed=11, width=w,
+                                      draw=draw), n,
+                   50 if draw == "uniform" else 5)
+            if draw != "uniform":
+                yield ({**fields, "rows": "randn"},
+                       *k2_inputs(e, e_pad, n, dt, seed=11, width=w,
+                                  draw=draw, ints=False), n, 0)
     mols = pack_molecules(make_dataset(num_drugs=K2_MOL_DRUGS,
                                        seed=0).molecules, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -868,9 +910,43 @@ def k2_sum_checks() -> list:
             ("mol_readout", n_pad, K2_MSG_WIDTH, mols.node_graph_starts,
              mols.num_graphs)):
         data = torch.randn(n_rows, w, generator=g, device="cuda")
-        rows.append({"use": use, "drugs": K2_MOL_DRUGS,
-                     **k2_rows_check(data, starts, n, iters=50)})
+        yield {"use": use, "drugs": K2_MOL_DRUGS}, data, starts, n, 50
     del mols
+    yield ({"use": "covariates", "drugs": K2_COV_DRUGS},
+           *k2_segments([K2_COV_DRUGS] * NUM_CELL_LINES, K2_MSG_WIDTH,
+                        seed=13), NUM_CELL_LINES, 50)
+    split = segment_sorted.split_rows()
+    for longest in (split, split + 1):
+        lengths = torch.randint(0, split, (K2_ABOUT_P_SEGMENTS,),
+                                generator=torch.Generator().manual_seed(14))
+        lengths[K2_ABOUT_P_SEGMENTS // 2] = longest
+        yield ({"use": "about_split"},
+               *k2_segments(lengths.tolist(), K2_MSG_WIDTH, seed=14),
+               K2_ABOUT_P_SEGMENTS, 20)
+
+
+def k2_segments(lengths: list, width: int, seed: int) -> tuple:
+    """randn f32 rows [sum(lengths), width] on the card and the boundary
+    table of consecutive segments of those lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    starts = torch.tensor([0] + lengths, device="cuda").cumsum(0)
+    data = torch.randn(int(starts[-1]), width, generator=g, device="cuda")
+    return data, starts.to(torch.int32)
+
+
+def k2_sum_checks() -> list:
+    """k2_rows_check at each of k2_uses' shapes: uniform randn rows within
+    1e-5 of the plain version, small-integer rows exactly, skewed randn
+    rows against the kernel's order alone (the plain version's atomic
+    adds take hundreds of thousands of rows in another order)."""
+    rows = []
+    for fields, data, starts, n, iters in k2_uses():
+        rtol = (None if fields.get("rows") == "randn"
+                else 1e-5 if fields.get("draw", "uniform") == "uniform"
+                else 0.0)
+        rows.append({**fields, **k2_rows_check(data, starts, n, iters,
+                                               rtol=rtol)})
+        del data, starts
     torch.cuda.empty_cache()
     return rows
 
@@ -903,6 +979,120 @@ def k2_step(shrink: int, link_split: bool = False) -> dict:
             "plain_ms": sum(plain[et] for et in launches),
             "library_ms": sum(library[et] for et in launches),
             "bound_ms": sum(bound[et] for et in launches)}
+
+
+def tree_segment_sorted(tree: Path, i: int):
+    """`ops/segment_sorted.py` of the checkout at `tree`, imported from
+    there as the module of a package of its own (`k2_tree<i>`), with its
+    own `_build` and `build/kernels/`."""
+    name = f"k2_tree{i}"
+    ops = tree / "madrigal_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        name, ops / "__init__.py", submodule_search_locations=[str(ops)])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    return importlib.import_module(f"{name}.segment_sorted")
+
+
+def host_us(fn, iters: int) -> float:
+    """The host's time to issue one call of `fn`, in us: `iters` calls
+    issued with no wait for the card, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def phase_k2_against(trees: list) -> list:
+    """`sorted_segment_sum` of each checkout in `trees` and of this one at
+    the shapes of the training run's source gathers (K2_TIMED) and of
+    k2_uses' timed uses. Each tree's result is checked first: equal bit
+    for bit to this tree's where the rows are small integers or no segment
+    is longer than either tree's P (a tree with no `split_rows` sums every
+    segment in one piece), else to `sorted_segment_sum_ordered` at its P.
+    Then each is timed in turns (the trees in order, then in reverse,
+    twice): the median of CUDA-event pairs (`ms`) and the host's time to
+    issue a call (`host_us`), beside `torch.segment_reduce`, `index_add_`
+    and the bytes bound."""
+    mods = {"this": segment_sorted}
+    for i, tree in enumerate(trees):
+        mods[tree.name] = tree_segment_sorted(tree, i)
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc a tree at once
+        list(pool.map(lambda m: m._build.build(["segment_sum"]),
+                      mods.values()))
+    split = {label: m.split_rows() if hasattr(m, "split_rows") else None
+             for label, m in mods.items()}
+    emit({"phase": "k2_against", "split_rows": split})
+    shapes = k2_shapes(TRAIN_SHRINK)
+
+    def inputs():
+        for et in K2_TIMED:
+            e_real, e_pad, n = shapes[et]
+            yield ({"use": "source_gather", "edge_type": "__".join(et)},
+                   *k2_inputs(e_real, e_pad, n, torch.float32, seed=6), n,
+                   50)
+        yield from k2_uses()
+
+    rows = []
+    for fields, data, starts, n, iters in inputs():
+        if not iters:
+            continue
+        largest = int((starts[1:] - starts[:-1]).max())
+        exact = bool((data == data.round()).all())
+        ours = segment_sorted.sorted_segment_sum(data, starts, n)
+        reps = {}
+        for label, m in mods.items():
+            p = split[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = m.sorted_segment_sum(data, starts, n)
+            torch.cuda.synchronize()
+            # a call of tens of ms (one warp on a hub) is timed fewer times
+            reps[label] = iters if time.perf_counter() - t0 < 5e-3 else 3
+            if exact or largest <= min(p or largest, split["this"]):
+                want = ours
+            elif p is not None:
+                want = segment_sorted.sorted_segment_sum_ordered(
+                    data, starts, n, p)
+            else:
+                continue
+            require(torch.equal(got, want),
+                    f"k2_against: {label} is not its order of the sums at "
+                    f"{fields}")
+        del ours, got
+        ms = {label: [] for label in mods}
+        host = {label: [] for label in mods}
+        for label in (list(mods) + list(mods)[::-1]) * 2:
+            k2 = mods[label].sorted_segment_sum
+            ms[label].append(cuda_ms(lambda: k2(data, starts, n),
+                                     reps[label]))
+            host[label].append(host_us(lambda: k2(data, starts, n),
+                                       reps[label]))
+        seg = segment_sorted.row_segments(starts, data.shape[0])
+        wide = data.float()
+        out = torch.zeros((n + 1, data.shape[1]), device=data.device)
+        offsets = starts.long()
+        row = {**fields, "E": data.shape[0], "N": n, "W": data.shape[1],
+               "in": DTYPE_NAME[data.dtype], "largest_segment": largest,
+               "ms": {label: float(np.median(v)) for label, v in ms.items()},
+               "ms_turns": ms,
+               "host_us": {label: float(np.median(v))
+                           for label, v in host.items()},
+               "library_ms": cuda_ms(lambda: torch.segment_reduce(
+                   data, "sum", offsets=offsets), iters),
+               "index_add_ms": cuda_ms(
+                   lambda: out.zero_().index_add_(0, seg, wide), iters)}
+        row["bound_ms"], row["bound_by"] = k2_bound(
+            int(starts[-1]), n, data.shape[1], data.dtype)
+        emit({"phase": "k2_against", **row})
+        rows.append(row)
+        del data, starts, seg, wide, out, offsets
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------- serving
@@ -3320,6 +3510,9 @@ def phase_bf16_train(ds):
             f"losses {losses}")
     data, starts, n = seen.kept
     seen_dtypes = seen.dtypes
+    # the drugs each encoder pass takes: the covariate lookup's segment
+    # length (K2_COV_DRUGS in k2_sum_checks)
+    pass_drugs = [batch.head.batch_size, batch.tail.batch_size]
     del trainer, batch, kg, seen
     require(n == n_ppi and int(starts[-1]) == e_real,
             f"bf16_train: the kept rows are not ppi's: {n} segments, "
@@ -3331,7 +3524,7 @@ def phase_bf16_train(ds):
           "compute_dtype": {"hgt": "bfloat16", "transformer": "bfloat16"},
           "memory_flags": TRAIN_MEMORY_FLAGS, "losses": losses,
           "build_s": t_build, "step_s": t_step, "launches": counts,
-          "k2_expected": k2_want,
+          "k2_expected": k2_want, "drugs_a_pass": pass_drugs,
           "k2_rows": {d: seen_dtypes.count(d) for d in ("bf16", "f32")},
           "peak_device_mem_gb": peak,
           "k2_ppi_bf16": row})
@@ -4154,11 +4347,17 @@ def main(argv) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         print(gpu_line(), flush=True)
         return 0
+    if argv[:1] == ["--k2_against"] and len(argv) >= 2:
+        _build.build(["segment_sum"], verbose=True)
+        phase_k2_against([Path(a).resolve() for a in argv[1:]])
+        print(gpu_line(), flush=True)
+        return 0
     if argv not in ([], ["--kernels"], ["--alt"], ["--aux"],
                     ["--parallel"]):
         sys.exit(f"unknown arguments {argv}: chip_smoke.py takes none, "
-                 "--kernels, --pretrain, --stage1, --alt, --aux, "
-                 "--parallel or --train_memory")
+                 "--kernels, --k2_against TREE [TREE ...], "
+                 "--pretrain, --stage1, --alt, --aux, --parallel or "
+                 "--train_memory")
 
     wall = {}
 
@@ -4323,7 +4522,8 @@ def main(argv) -> int:
               ("L", "M", "N", "compute", "out")),
         entry("sorted_segment_sum", "madrigal_tpu_torch/csrc/segment_sum.cu",
               "madrigal_tpu/ops/segment_pallas.py:62", k2_checks,
-              ("edge_type", "shrink", "E", "E_real", "N", "W", "in"),
+              ("edge_type", "shrink", "E", "E_real", "N", "W", "in",
+               "split_rows", "scratch_bytes"),
               extra=[k2_bf16])]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,23 +22,47 @@
 // graph (E = 1,200,128, N = 27,000, W = 256, f32) that is about 1.26 GB,
 // 0.375 ms; all 17 edge types of one HGT layer move about 8.8 GB, 2.6 ms.
 //
-// Design: one warp owns one segment and one group of 32 * VEC columns;
-// each lane owns VEC contiguous columns, so a warp reads each row's group
-// as one contiguous stretch. VEC = 8 where W is a multiple of 256 (two
-// float4 loads of f32, or one 16-byte load of bf16 / f16, per row and
-// lane), VEC = 4 where W is a multiple of 4 (the last group may leave
+// Design: one warp owns one piece of a segment and one group of 32 * VEC
+// columns; each lane owns VEC contiguous columns, so a warp reads each
+// row's group as one contiguous stretch. VEC = 8 where W is a multiple of
+// 256 (two float4 loads of f32, or one 16-byte load of bf16 / f16, per row
+// and lane), VEC = 4 where W is a multiple of 4 (the last group may leave
 // lanes idle), VEC = 1 for any other width; a vector load is used only
-// where the rows are aligned for it. The lane loops over the span with an
+// where the rows are aligned for it. The lane loops over the piece with an
 // f32 register accumulator and writes its columns once. No atomics, no
 // shared memory and no padding; an empty segment writes zeros.
 //
-// Known weakness: a hub node with a very long span runs on one warp while
-// the others finish, and a short span leaves the warp waiting on the
-// latency of a few loads. The synthetic KG's degrees are uniform, real
-// PrimeKG's are skewed; splitting long spans across warps and pipelining
-// the loads (cp.async) are later work.
+// The order of every sum, fixed by P = kSplitRows alone (the plain
+// PyTorch form is `sorted_segment_sum_ordered` in ops/segment_sorted.py):
+// a segment of L <= P rows is summed in f32 from 0, one row after another
+// in ascending order. A longer one is cut into pieces of P rows, piece k
+// holding rows [b + kP, min(b + (k + 1)P, e)); each piece is summed as a
+// short segment into a partial p_k, and out = (..((p_0 + p_1) + p_2) ..),
+// in ascending k. So no warp walks more than P rows, however skewed the
+// degrees (a hub node, chemCPA's covariate segments of one row a drug).
 //
-// C entry: madrigal_sorted_segment_sum(...) returns cudaGetLastError().
+// Two launches (one where E <= P, as no segment can be longer). The first
+// has ceil(E / P) chunk warps, then N segment warps. Segment warp s sums
+// piece 0 of segment s (its first min(L, P) rows) into out[s]. Chunk warp
+// c takes rows [cP, (c + 1)P): it finds the segment A holding row cP by a
+// search in `starts` (32 probes a round, one a lane) and, if a piece
+// k >= 1 of A starts inside the chunk, sums that piece into scratch[c]. A
+// chunk holds at most one such piece start: pieces start P rows apart, and
+// a segment that begins inside the chunk has its piece 1 past the chunk's
+// end. The chunk warps come first so that the long pieces start early.
+// In the second launch a block reads 1,024 segments' spans, one a thread,
+// lists those longer than P, and its 32 warps take them in turn: for each,
+// a warp adds scratch[(b + kP) / P] for k = 1, 2, ... to out[s], in order.
+// The scratch is ceil(E / P) * W f32, allocated by the wrapper.
+//
+// Known weakness: at narrow widths (the 4-wide softmax denominators) one
+// lane of a warp works and 31 wait, and a short segment leaves its warp
+// waiting on the latency of a few loads. A mapping of several rows or
+// segments to a warp at narrow widths, and pipelined loads (cp.async), are
+// later work.
+//
+// C entries: madrigal_sorted_segment_sum(...) returns cudaGetLastError();
+// madrigal_segment_split_rows() returns P.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -47,8 +71,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // warps (segments) per block
+constexpr int kWarps = 8;  // warps per block of the first launch
 constexpr int kThreads = kWarps * 32;
+constexpr int kCombineThreads = 1024;  // threads per block of the second
+
+constexpr int kSplitRows = 512;  // P, the rows of a piece (see above)
 
 using bf16 = __nv_bfloat16;
 
@@ -96,26 +123,12 @@ template <typename T, int VEC> struct Row {
   }
 };
 
+// rows [b, e) of the lane's VEC columns, summed in f32 from 0 in ascending
+// row order, written to dst
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
-                   float* __restrict__ out, int64_t E, int N, int W) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int s = blockIdx.x * kWarps + warp;
-  const int64_t col = (int64_t)blockIdx.y * (32 * VEC) + lane * VEC;
-  // W % VEC == 0, so a lane's VEC columns lie all inside the row or all
-  // past it
-  if (s >= N || col >= W) return;
-
-  // the span, clipped to the real rows [0, min(starts[N], E))
-  int64_t end = __ldg(starts + N);
-  end = end < E ? end : E;
-  int64_t e = __ldg(starts + s + 1);
-  e = e < end ? e : end;
-  int64_t b = __ldg(starts + s);
-  b = b > 0 ? b : 0;
-
+__device__ __forceinline__ void sum_rows(const T* __restrict__ data,
+                                         int64_t b, int64_t e, int W,
+                                         int64_t col, float* __restrict__ dst) {
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
@@ -124,7 +137,7 @@ segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
 #pragma unroll 4
   for (int64_t t = b; t < e; ++t, p += W) Row<T, VEC>::add(p, acc);
 
-  float* o = out + (int64_t)s * W + col;
+  float* o = dst + col;
   if constexpr (VEC == 1) {
     o[0] = acc[0];
   } else {
@@ -135,41 +148,195 @@ segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
   }
 }
 
+// segment s's span, clipped to the real rows [0, min(starts[N], E))
+__device__ __forceinline__ void span(const int* __restrict__ starts,
+                                     int64_t end, int64_t s, int64_t& b,
+                                     int64_t& e) {
+  e = __ldg(starts + s + 1);
+  e = e < end ? e : end;
+  b = __ldg(starts + s);
+  b = b > 0 ? b : 0;
+}
+
+// the last s in [0, N) with starts[s] <= r, given starts[0] <= r: a search
+// by the whole warp, 32 probes a round
+__device__ __forceinline__ int64_t find_segment(const int* __restrict__ starts,
+                                                int N, int64_t r, int lane) {
+  int64_t lo = 0, hi = N - 1;  // the answer lies in [lo, hi]
+  while (hi - lo >= 32) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t probe = lo + (lane + 1) * step;
+    // starts is sorted, so the probes at or below r are a prefix
+    const int below = __popc(__ballot_sync(
+        0xffffffffu, probe <= hi && __ldg(starts + probe) <= r));
+    if (below < 32) hi = min(hi, lo + (below + 1) * step - 1);
+    lo += below * step;
+  }
+  const int64_t c = lo + lane;
+  return lo - 1 + __popc(__ballot_sync(
+      0xffffffffu, c <= hi && __ldg(starts + c) <= r));
+}
+
+// first launch: warps [0, chunks) are chunk warps, warps [chunks,
+// chunks + N) segment warps
 template <typename T, int VEC>
-void launch(const void* data, const int* starts, float* out, int64_t E, int N,
-            int W, cudaStream_t stream) {
-  const dim3 grid((N + kWarps - 1) / kWarps, (W + 32 * VEC - 1) / (32 * VEC));
+__global__ void __launch_bounds__(kThreads)
+segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
+                   float* __restrict__ out, float* __restrict__ scratch,
+                   int64_t E, int N, int W, int64_t chunks) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t g = (int64_t)blockIdx.x * kWarps + warp;
+  if (g >= chunks + N) return;  // the whole warp
+  const int64_t col = (int64_t)blockIdx.y * (32 * VEC) + lane * VEC;
+  // W % VEC == 0, so a lane's VEC columns lie all inside the row or all
+  // past it; a lane past it still takes part in the chunk warp's search
+  const bool active = col < W;
+  int64_t end = __ldg(starts + N);
+  end = end < E ? end : E;
+  int64_t b, e;
+
+  if (g >= chunks) {  // segment warp: piece 0, the first min(L, P) rows
+    const int64_t s = g - chunks;
+    span(starts, end, s, b, e);
+    const int64_t e0 = e - b > kSplitRows ? b + kSplitRows : e;
+    if (active) sum_rows<T, VEC>(data, b, e0, W, col, out + s * W);
+    return;
+  }
+
+  // chunk warp: the piece k >= 1 that starts in rows [r, r + P), if any
+  const int64_t r = g * kSplitRows;
+  if (r >= end || r < __ldg(starts)) return;  // the whole warp
+  span(starts, end, find_segment(starts, N, r, lane), b, e);
+  if (e - b <= kSplitRows) return;
+  const int64_t k = (r - b + kSplitRows - 1) / kSplitRows;
+  const int64_t ps = b + k * kSplitRows;  // in [r, r + P)
+  if (k == 0 || ps >= e) return;
+  const int64_t pe = e - ps > kSplitRows ? ps + kSplitRows : e;
+  if (active) sum_rows<T, VEC>(data, ps, pe, W, col, scratch + g * W);
+}
+
+// second launch: a block reads the spans of kCombineThreads segments, one
+// a thread, and lists those longer than P in shared memory (a prefix count
+// of the warps' ballots, no atomics); its warps take the list's entries in
+// turn, and for each the lanes add scratch[(b + kP) / P] for k = 1, 2, ...
+// to out[s] over the block's columns, in order
+template <int VEC>
+__global__ void __launch_bounds__(kCombineThreads)
+segment_combine_kernel(const float* __restrict__ scratch,
+                       const int* __restrict__ starts,
+                       float* __restrict__ out, int64_t E, int N, int W) {
+  __shared__ int64_t first[kCombineThreads], last[kCombineThreads];
+  __shared__ int64_t ids[kCombineThreads];
+  __shared__ int counts[kCombineThreads / 32];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t s = (int64_t)blockIdx.x * kCombineThreads + threadIdx.x;
+  int64_t end = __ldg(starts + N);
+  end = end < E ? end : E;
+  int64_t b = 0, e = 0;
+  if (s < N) span(starts, end, s, b, e);
+  const bool split = e - b > kSplitRows;
+  const unsigned ballot = __ballot_sync(0xffffffffu, split);
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int slot = __popc(ballot & ((1u << lane) - 1)), listed = 0;
+  for (int w = 0; w < kCombineThreads / 32; ++w) {
+    slot += w < warp ? counts[w] : 0;
+    listed += counts[w];
+  }
+  if (split) {
+    first[slot] = b;
+    last[slot] = e;
+    ids[slot] = s;
+  }
+  __syncthreads();
+
+  const int64_t col = (int64_t)blockIdx.y * (32 * VEC) + lane * VEC;
+  if (col >= W) return;
+  for (int j = warp; j < listed; j += kCombineThreads / 32) {
+    // piece k >= 1 of the segment is in chunk b / P + k
+    const int64_t pieces = (last[j] - first[j] + kSplitRows - 1) / kSplitRows;
+    const float* q = scratch + (first[j] / kSplitRows + 1) * W + col;
+    float* o = out + ids[j] * W + col;
+    if constexpr (VEC == 1) {
+      float acc = o[0];
+#pragma unroll 8
+      for (int64_t k = 1; k < pieces; ++k, q += W) acc += __ldg(q);
+      o[0] = acc;
+    } else {
+      float4 acc = *reinterpret_cast<const float4*>(o);
+#pragma unroll 8
+      for (int64_t k = 1; k < pieces; ++k, q += W) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(q));
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      *reinterpret_cast<float4*>(o) = acc;
+    }
+  }
+}
+
+template <typename T, int VEC>
+void launch(const void* data, const int* starts, float* out, float* scratch,
+            int64_t E, int N, int W, cudaStream_t stream) {
+  // no segment is longer than P unless E is: then one launch does it all
+  const int64_t chunks = E > kSplitRows ? (E + kSplitRows - 1) / kSplitRows
+                                        : 0;
+  const dim3 grid((unsigned)((chunks + N + kWarps - 1) / kWarps),
+                  (W + 32 * VEC - 1) / (32 * VEC));
   segment_sum_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(data), starts, out, E, N, W);
+      static_cast<const T*>(data), starts, out, scratch, E, N, W, chunks);
+  if (chunks == 0) return;
+  // the output and the scratch (fresh allocations) are aligned for float4
+  // wherever W % 4 == 0
+  const unsigned blocks = (unsigned)((N + kCombineThreads - 1)
+                                    / kCombineThreads);
+  if (W % 4 == 0)
+    segment_combine_kernel<4><<<dim3(blocks, (W + 127) / 128),
+                                kCombineThreads, 0, stream>>>(
+        scratch, starts, out, E, N, W);
+  else
+    segment_combine_kernel<1><<<dim3(blocks, (W + 31) / 32),
+                                kCombineThreads, 0, stream>>>(
+        scratch, starts, out, E, N, W);
 }
 
 template <typename T>
 void launch_any_width(const void* data, const int* starts, float* out,
-                      int64_t E, int N, int W, cudaStream_t stream) {
+                      float* scratch, int64_t E, int N, int W,
+                      cudaStream_t stream) {
   // the widest vector the width and the rows' alignment allow; the output
   // (a fresh allocation) is aligned for float4 wherever W % 4 == 0
   const uintptr_t addr = reinterpret_cast<uintptr_t>(data);
   if (W % 256 == 0 && addr % (8 * sizeof(T)) == 0)
-    launch<T, 8>(data, starts, out, E, N, W, stream);
+    launch<T, 8>(data, starts, out, scratch, E, N, W, stream);
   else if (W % 4 == 0 && addr % (4 * sizeof(T)) == 0)
-    launch<T, 4>(data, starts, out, E, N, W, stream);
+    launch<T, 4>(data, starts, out, scratch, E, N, W, stream);
   else
-    launch<T, 1>(data, starts, out, E, N, W, stream);
+    launch<T, 1>(data, starts, out, scratch, E, N, W, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16
+// scratch: [ceil(E / P), W] f32, or null where E <= P
 extern "C" int madrigal_sorted_segment_sum(const void* data, const void* starts,
-                                           void* out, int64_t E, int N, int W,
-                                           int dtype, void* stream) {
+                                           void* out, void* scratch, int64_t E,
+                                           int N, int W, int dtype,
+                                           void* stream) {
   // the wrapper has checked: N > 0, W > 0, contiguous rows and output
   const int* st = static_cast<const int*>(starts);
   float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) launch_any_width<float>(data, st, o, E, N, W, s);
-  else if (dtype == 1) launch_any_width<bf16>(data, st, o, E, N, W, s);
-  else if (dtype == 2) launch_any_width<__half>(data, st, o, E, N, W, s);
+  if (dtype == 0) launch_any_width<float>(data, st, o, sc, E, N, W, s);
+  else if (dtype == 1) launch_any_width<bf16>(data, st, o, sc, E, N, W, s);
+  else if (dtype == 2) launch_any_width<__half>(data, st, o, sc, E, N, W, s);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int madrigal_segment_split_rows(void) { return kSplitRows; }

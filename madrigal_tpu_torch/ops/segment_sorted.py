@@ -11,14 +11,18 @@ make: the segment sums and softmax denominators of `ops/segment.py`
 `ops/gather.py` (backward).
 
 `sorted_segment_sum` launches the hand-written CUDA kernel
-(`csrc/segment_sum.cu`, one warp per segment, f32 sums in ascending row
-order, no atomics) for CUDA tensors and runs `sorted_segment_sum_plain`
-for CPU tensors; there is no fallback between the two. The kernel is
-built at first use by `ops/_build.py`.
+(`csrc/segment_sum.cu`: f32 sums in a fixed order, long segments split
+into pieces of `split_rows()` rows that run on warps of their own, no
+atomics) for CUDA tensors and runs `sorted_segment_sum_plain` for CPU
+tensors; there is no fallback between the two. The kernel is built at
+first use by `ops/_build.py`. `sorted_segment_sum_ordered` takes the
+kernel's order of the sums in plain PyTorch, so that the kernel can be
+held to it bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -83,10 +87,102 @@ def sorted_segment_sum_plain(data: torch.Tensor, starts: torch.Tensor,
     return out[:num_segments]
 
 
-def _library():
+def sorted_segment_sum_ordered(data: torch.Tensor, starts: torch.Tensor,
+                               num_segments: int,
+                               split_rows: int) -> torch.Tensor:
+    """The sums of `sorted_segment_sum_plain`, taken in the kernel's
+    order, so that the kernel equals it bit for bit: a segment of
+    L <= split_rows (P) rows is summed in f32 (f64 for f64 rows) from 0,
+    one row after another in ascending order; a longer one is cut into
+    pieces of P rows from its first row, each summed so into a partial
+    p_k, and out = (..((p_0 + p_1) + p_2) ..), in ascending k. A loop over
+    the row offset within a piece, over every piece at once, then a loop
+    over the pieces. For tests and the card's checks only."""
+    P = split_rows
+    n, (E, W) = num_segments, data.shape
+    dev = data.device
+    acc = torch.float64 if data.dtype == torch.float64 else torch.float32
+    out = torch.zeros((n, W), dtype=acc, device=dev)
+    # each segment's span [b, e), clipped to the real rows [0,
+    # min(starts[N], E)) as the kernel clips it
+    st = starts.long()
+    b = st[:n].clamp(min=0)
+    e = torch.maximum(torch.minimum(st[1:], st[n].clamp(max=E)), b)
+    pieces = (e - b + P - 1) // P  # 0 for an empty segment
+    total = int(pieces.sum())
+    if total == 0:
+        return out
+    seg = torch.repeat_interleave(torch.arange(n, device=dev), pieces,
+                                  output_size=total)
+    first = torch.cumsum(pieces, 0) - pieces  # piece 0 of each segment
+    index = torch.arange(total, device=dev) - first[seg]  # k, per piece
+    p_start = b[seg] + index * P
+    p_len = torch.minimum(e[seg] - p_start, torch.full_like(p_start, P))
+    # the pieces longest first, so the pieces still summing at offset j
+    # are a prefix
+    by_len = torch.argsort(p_len, descending=True, stable=True)
+    p_start, lens = p_start[by_len], p_len[by_len].cpu()
+    live = torch.searchsorted(-lens, -torch.arange(int(lens[0]))).tolist()
+    rows = data.to(acc)
+    part = torch.zeros((total, W), dtype=acc, device=dev)
+    for j, m in enumerate(live):
+        part[:m] += rows[p_start[:m] + j]
+    partial = torch.empty_like(part)
+    partial[by_len] = part
+    # the partials in ascending k, the segments with the most pieces first
+    # (those with more than k pieces are a prefix)
+    by_count = torch.argsort(pieces, descending=True, stable=True)
+    counts, first = pieces[by_count].cpu(), first[by_count]
+    live = torch.searchsorted(-counts, -torch.arange(int(counts[0]))).tolist()
+    sums = torch.zeros((n, W), dtype=acc, device=dev)
+    sums[:live[0]] = partial[first[:live[0]]]
+    for k, m in enumerate(live[1:], 1):
+        sums[:m] += partial[first[:m] + k]
+    out[by_count] = sums
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel() -> tuple:
+    """(the kernel's C entry, P), from the library built at first use."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _build.load("segment_sum", "madrigal_sorted_segment_sum",
-                       [vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp])
+    lib = _build.load("segment_sum", "madrigal_sorted_segment_sum",
+                      [vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp])
+    lib.madrigal_segment_split_rows.argtypes = []
+    lib.madrigal_segment_split_rows.restype = ci
+    return lib.madrigal_sorted_segment_sum, lib.madrigal_segment_split_rows()
+
+
+def split_rows() -> int:
+    """P, the rows of a piece, from the built kernel (needs nvcc)."""
+    return _kernel()[1]
+
+
+# the current stream's raw handle, without making the Stream object of
+# torch.cuda.current_stream (some 7 us of host time a call on an H100's
+# host): torch's private getter, where this build has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+# One scratch buffer of _SCRATCH_KEPT floats is kept for each (device,
+# stream) whose launches (which run in order on it) need no more, so that
+# the calls of tens of us, whose time the host's allocation would add to,
+# allocate nothing. A larger need (rows by the million at 128 wide, calls
+# of 0.1 ms and more) gets a buffer of its own, freed when the call
+# returns, and so does a call while a CUDA graph is captured.
+_SCRATCH_KEPT = 1 << 16
+_scratch: dict = {}
+
+
+def _scratch_for(dev, stream: int, numel: int) -> torch.Tensor:
+    """At least `numel` f32 of scratch for a launch on `stream`."""
+    if numel > _SCRATCH_KEPT or torch.cuda.is_current_stream_capturing():
+        return torch.empty(numel, dtype=torch.float32, device=dev)
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.empty(_SCRATCH_KEPT, dtype=torch.float32,
+                                          device=dev)
+    return buf
 
 
 def sorted_segment_sum(data: torch.Tensor, starts: torch.Tensor,
@@ -96,8 +192,10 @@ def sorted_segment_sum(data: torch.Tensor, starts: torch.Tensor,
     [num_segments + 1] int32.
 
     CPU tensors run `sorted_segment_sum_plain`. CUDA tensors launch the
-    kernel on the current stream; anything it does not take raises.
-    `sorted_segment_sum.launches` counts kernel launches."""
+    kernel on the current stream, in the order of
+    `sorted_segment_sum_ordered`; anything it does not take raises.
+    `sorted_segment_sum.launches` counts calls that launched the kernel
+    (its two CUDA kernels count as one)."""
     if data.device.type == "cpu":
         return sorted_segment_sum_plain(data, starts, num_segments)
     if data.device.type != "cuda":
@@ -117,10 +215,14 @@ def sorted_segment_sum(data: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((num_segments, W), dtype=torch.float32, device=dev)
     if num_segments == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().madrigal_sorted_segment_sum(
-        data.data_ptr(), starts.data_ptr(), out.data_ptr(), E, num_segments,
-        W, _DTYPE_CODE[data.dtype], stream)
+    kernel, P = _kernel()
+    stream = (_raw_stream(dev.index) if _raw_stream is not None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    # the pieces' partials; no segment is longer than P unless E is
+    scratch = _scratch_for(dev, stream, -(-E // P) * W) if E > P else None
+    err = kernel(data.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), E,
+                 num_segments, W, _DTYPE_CODE[data.dtype], stream)
     if err != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {err}")
     sorted_segment_sum.launches += 1

@@ -51,6 +51,7 @@ from tests.test_torch_stage1 import to_flax
 from tests.test_torch_train import (
     DATA,
     assert_three_steps_match_jax,
+    one_thread,  # noqa: F401  (fixture)
     tiny_cfg,
 )
 

@@ -50,6 +50,7 @@ from tests.test_torch_alt_encoders import (  # noqa: F401
     data,
     port_model,
 )
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
 F32_TOL = 1e-5

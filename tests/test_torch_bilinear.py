@@ -20,6 +20,7 @@ from madrigal_tpu.ops.bilinear_pallas import (
     bilinear_scores_xla,
 )
 from madrigal_tpu_torch.ops import bilinear as tb
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 # (L, M, N): whole tiles; ragged; and one row against the odd serving
 # width and a row width with N % 8 == 2, with L not a multiple of the

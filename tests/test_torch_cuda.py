@@ -9,7 +9,8 @@ Tolerances: K1 with f32 compute and output within 1e-4 of max|plain|
 (the same f32 products, summed in another order); with bf16 anywhere,
 1e-2 (a bf16 rounding of z_head . W_l or of the score can land on the
 other side of its boundary). K2 within 1e-5 of max|plain| (the same f32
-sums in another order; bf16 and f16 rows widen to f32 exactly).
+sums in another order; bf16 and f16 rows widen to f32 exactly), and
+bit for bit equal to `sorted_segment_sum_ordered`, which takes its order.
 Ranks on the card equal the port's CPU ranks of the same scores exactly
 (the same stable order, the same float32 arithmetic); the sigmoid-mean
 ensemble of K1 scores is within 1e-5 of the CPU path's.
@@ -121,6 +122,8 @@ def test_segment_sum_kernel_matches_plain(cuda, e, n, w, real, dtype,
     assert ts.sorted_segment_sum.launches == before + 2
     assert got.shape == (n, w) and got.dtype == torch.float32
     assert torch.equal(got, again)  # no atomics: the same bits every run
+    assert torch.equal(got, ts.sorted_segment_sum_ordered(
+        data, starts, n, ts.split_rows()))
     ref = ts.sorted_segment_sum_plain(data, starts, n)
     err = (got - ref).abs().max().item() if n else 0.0
     assert err <= 1e-5 * max(ref.abs().max().item(), 1.0)
@@ -448,20 +451,32 @@ def test_two_gloo_ranks_on_card_match_one_card(cuda, tmp_path):
 # gives the same bits on every run.
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("draw", ["uniform", "hub", "zipf"])
-@pytest.mark.parametrize("w", [4, 128, 256])
-def test_segment_sum_kernel_skewed_and_narrow(cuda, draw, w):
-    """K2 at the widths of its new uses (4: the softmax denominators, one
-    column a head; 128: the messages; 256: the fused k|v table) on rows
-    grouped uniformly, with one hub segment holding a quarter of them,
-    and by a Zipf-like draw. The rows hold small integers, so every f32
-    sum is exact in any order: K2 equals its plain version exactly."""
+@pytest.mark.parametrize("draw", ["uniform", "hub", "zipf", "about_p"])
+@pytest.mark.parametrize("w", [1, 4, 7, 128, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_sum_kernel_skewed_and_narrow(cuda, draw, w, dtype,
+                                              aligned):
+    """K2 at the widths of its uses (4: the softmax denominators, one
+    column a head; 128: the messages; 256: the fused k|v table) and at
+    the scalar path's (1, 7), on rows grouped uniformly, with one hub
+    segment holding a quarter of them, by a Zipf-like draw, and in
+    segments of P - 1, P, P + 1 and 2P rows (P = split_rows()). On randn
+    rows it equals `sorted_segment_sum_ordered` (its order of the sums)
+    bit for bit, twice, one launch a call; on small-integer rows, whose
+    f32 sums are exact in any order, it equals its plain version."""
+    P = ts.split_rows()
     g = torch.Generator(device=cuda).manual_seed(w)
     e, n = 200_000, 5_000
     if draw == "zipf":
         weights = torch.arange(1, n + 1, device=cuda,
                                dtype=torch.float64) ** -1.1
         ids = torch.multinomial(weights, e, replacement=True, generator=g)
+    elif draw == "about_p":
+        lengths = torch.tensor([P - 1, P, P + 1, 2 * P, 0, 3],
+                               device=cuda).repeat(40)
+        n, e = lengths.numel(), int(lengths.sum())
+        ids = torch.repeat_interleave(torch.arange(n, device=cuda), lengths)
     else:
         ids = torch.randint(0, n, (e,), generator=g, device=cuda)
         if draw == "hub":
@@ -469,11 +484,90 @@ def test_segment_sum_kernel_skewed_and_narrow(cuda, draw, w):
     ids = ids.sort()[0]
     starts = torch.searchsorted(
         ids, torch.arange(n + 1, device=cuda)).to(torch.int32)
-    data = torch.randint(-8, 9, (e + 100, w), generator=g,
-                         device=cuda).float()
+
+    def rows(values):  # [e + 100, w] in the dtype, at an offset unless
+        values = values.to(DTYPES[dtype])  # aligned
+        if aligned:
+            return values
+        buf = torch.empty(values.numel() + 1, dtype=values.dtype,
+                          device=cuda)
+        buf[1:] = values.reshape(-1)
+        return buf[1:].view(values.shape)
+
+    data = rows(torch.randn(e + 100, w, generator=g, device=cuda))
+    before = ts.sorted_segment_sum.launches
+    got = ts.sorted_segment_sum(data, starts, n)
+    again = ts.sorted_segment_sum(data, starts, n)
+    torch.cuda.synchronize()
+    assert ts.sorted_segment_sum.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, ts.sorted_segment_sum_ordered(data, starts, n,
+                                                          P))
+    data = rows(torch.randint(-8, 9, (e + 100, w), generator=g,
+                              device=cuda).float())
     got = ts.sorted_segment_sum(data, starts, n)
     assert torch.equal(got, ts.sorted_segment_sum(data, starts, n))
     assert torch.equal(got, ts.sorted_segment_sum_plain(data, starts, n))
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_on_drawn_layouts(cuda):
+    """K2 on 150 layouts drawn from a seed: 1 to 12 segments of up to
+    4P + 2 rows, P - 1, P, P + 1, 2P and 2P + 1 among them, empty ones,
+    rows before the first segment and trailing padding, widths 1, 4, 7
+    and 128, randn rows: bit for bit `sorted_segment_sum_ordered`, so that
+    every piece of every long segment is summed once, by the chunk that
+    holds its first row. Every second layout runs on a side stream (a
+    scratch buffer a stream), and gives the default stream's bits."""
+    P = ts.split_rows()
+    rng = np.random.RandomState(18)
+    side = torch.cuda.Stream()
+    for i in range(150):
+        special = [0, P - 1, P, P + 1, 2 * P, 2 * P + 1]
+        lengths = [int(rng.choice(special)) if rng.rand() < 0.4
+                   else int(rng.randint(0, 4 * P + 3))
+                   for _ in range(rng.randint(1, 13))]
+        lead, pad = rng.randint(0, 2 * P + 1, size=2)
+        starts = torch.tensor(np.cumsum([lead] + lengths), dtype=torch.int32,
+                              device=cuda)
+        w = (1, 4, 7, 128)[i % 4]
+        data = torch.from_numpy(rng.randn(int(starts[-1]) + pad, w).astype(
+            np.float32)).to(cuda)
+        n = len(lengths)
+        got = ts.sorted_segment_sum(data, starts, n)
+        if i % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                there = ts.sorted_segment_sum(data, starts, n)
+            torch.cuda.current_stream().wait_stream(side)
+            assert torch.equal(there, got), (i, lengths)
+        assert torch.equal(got, ts.sorted_segment_sum_ordered(
+            data, starts, n, P)), (i, lengths, lead, pad, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 128])
+def test_segment_sum_kernel_in_cuda_graph(cuda, w):
+    """K2 captured in a CUDA graph, with a segment of 3P + 5 rows (the
+    scratch of a call under capture is its own): each replay on new rows
+    gives the bits of a call outside the graph."""
+    P = ts.split_rows()
+    starts = torch.tensor([0, 7, 7 + 3 * P + 5, 8 + 3 * P + 5],
+                          dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(w)
+    data = torch.randn(int(starts[-1]) + 9, w, generator=g, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a call before capture, as torch asks
+        ts.sorted_segment_sum(data, starts, 3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ts.sorted_segment_sum(data, starts, 3)
+    for _ in range(2):
+        data.copy_(torch.randn(data.shape, generator=g, device=cuda))
+        graph.replay()
+        assert torch.equal(out, ts.sorted_segment_sum(data, starts, 3))
 
 
 @pytest.mark.cuda
@@ -495,6 +589,8 @@ def test_molecule_layout_sums_match_plain(cuda):
              mols.num_graphs)):
         data = torch.randn(n_rows, w, generator=g, device=cuda)
         got = ts.sorted_segment_sum(data, starts, n)
+        assert torch.equal(got, ts.sorted_segment_sum_ordered(
+            data, starts, n, ts.split_rows()))
         ref = ts.sorted_segment_sum_plain(data, starts, n)
         assert (got - ref).abs().max().item() <= 1e-5 * max(
             ref.abs().max().item(), 1.0)

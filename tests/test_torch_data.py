@@ -15,6 +15,7 @@ from madrigal_tpu.data import synthetic as j_syn
 from madrigal_tpu_torch.data import collate as t_collate
 from madrigal_tpu_torch.data import negative_sampling as t_ns
 from madrigal_tpu_torch.data import synthetic as t_syn
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 EDGE_COLUMNS = ["head", "tail", "label_indexed", "neg_head", "neg_tail"]
 

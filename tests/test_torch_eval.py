@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import sklearn.metrics as skm
+import torch
 
 from madrigal_tpu import config as j_config
 from madrigal_tpu.data import collate as j_collate
@@ -47,6 +48,7 @@ from madrigal_tpu_torch.interop.from_flax import load_flax_weights
 from madrigal_tpu_torch.models.encoder import MadrigalMultilabel
 from test_torch_models import _perturb
 from test_torch_predict import flagship_shaped
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 
 # ---------------------------------------------------------------- masks

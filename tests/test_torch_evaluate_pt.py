@@ -35,6 +35,7 @@ from madrigal_tpu_torch.eval import evaluate_pt as t_ept
 from madrigal_tpu_torch.eval import geomca as t_geo
 from madrigal_tpu_torch.interop.from_flax import load_flax_weights
 from madrigal_tpu_torch.models.encoder import MadrigalEncoder as TEncoder
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 DATA = dict(num_drugs=20, num_labels=4, num_edges=20, seed=40)
 MODS = (0, 1, 2, 13)

@@ -25,7 +25,7 @@ from madrigal_tpu_torch.eval.predict import model_from_checkpoint
 from madrigal_tpu_torch.models.encoder import build_model, init_weights
 from madrigal_tpu_torch.train import finetune as t_ft
 from madrigal_tpu_torch.train.checkpoint import save_checkpoint
-from test_torch_train import data, tiny_cfg  # noqa: F401  (fixture)
+from test_torch_train import data, one_thread, tiny_cfg  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -54,6 +54,7 @@ from tests.pyg_hgt_replicas import (
 )
 from tests.test_convert_checkpoint import build_reference_style_state_dict
 from tests.test_torch_alt_encoders import applied, port_model
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 DATASET = dict(num_drugs=12, num_labels=5, num_edges=20, seed=3)
 LAYOUTS = {"pyg23": (HGTConvPyG23, "global"),

@@ -32,6 +32,7 @@ from madrigal_tpu_torch.models import hgt as t_hgt
 from madrigal_tpu_torch.models import vae as t_vae
 from tests.test_torch_alt_encoders import applied, carried
 from tests.test_torch_models import close
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 DATASET = dict(num_drugs=30, num_labels=4, num_edges=40, seed=5)
 

@@ -49,6 +49,7 @@ from madrigal_tpu_torch.models import gin as t_gin
 from madrigal_tpu_torch.models import hgt as t_hgt
 from madrigal_tpu_torch.models import mlp as t_mlp
 from madrigal_tpu_torch.models import norm as t_norm
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

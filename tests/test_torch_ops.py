@@ -8,6 +8,7 @@ import torch
 
 from madrigal_tpu.ops import segment as js
 from madrigal_tpu_torch.ops import segment as ts
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 N = 7  # segments 2 and 6 get no rows
 

@@ -32,6 +32,7 @@ from madrigal_tpu import config as j_config
 from madrigal_tpu.train import optim as j_optim
 from madrigal_tpu_torch import config as t_config
 from madrigal_tpu_torch.train import optim as t_optim
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 STEPS, WARMUP = 8, 2
 

@@ -71,6 +71,7 @@ from madrigal_tpu_torch.train.pretrain_cl import CLPretrainer
 from madrigal_tpu_torch.constants import NON_TX_MODALITIES
 
 from test_torch_stage1 import to_flax
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = dict(num_drugs=12, num_labels=8, num_edges=24, seed=0)

@@ -63,6 +63,7 @@ from madrigal_tpu_torch.ops.bilinear import bilinear_scores
 from madrigal_tpu_torch.train.checkpoint import save_checkpoint
 from test_torch_models import _perturb
 from test_torch_ranks import separated
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = dict(num_drugs=18, num_labels=6, num_edges=30, seed=5)
@@ -254,14 +255,17 @@ def test_only_training_builds_the_source_sorted_layout():
 @pytest.mark.parametrize("extra", [
     ["--sharded", "--export_ranks", "r.npy"],
     ["--sharded", "--eval_type", "full_full"],
-    ["--sharded", "--ablation", "a.json"], ["--sharded"],
+    ["--sharded", "--ablation", "a.json", "--ablation_combos",
+     "str;str+kg+cv+tx"], ["--sharded"],
     ["--sharded", "CKPT2"], ["--platform", "tpu"]])
 def test_unported_flags_raise(served, extra, tmp_path):
     """--platform tpu raises before any output is written. --sharded,
     which raised the same way until the multi-GPU slice, now runs,
     whatever it is combined with: run without torchrun it is a one-rank
     group, and it writes and returns exactly what the run without it
-    does (tests/test_torch_parallel.py runs it on 2 ranks)."""
+    does (tests/test_torch_parallel.py runs it on 2 ranks). The ablation
+    study runs two of its combinations: their number is not what is
+    checked."""
     def run(out):
         out.mkdir()
         argv = ["--checkpoint", served["path"]]

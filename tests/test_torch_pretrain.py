@@ -63,6 +63,7 @@ from madrigal_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_train_state,
 )
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 DATA = dict(num_drugs=14, num_labels=4, num_edges=20, seed=3)
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from madrigal_tpu.eval import ranks as j_ranks
 from madrigal_tpu_torch.eval import ranks as t_ranks
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 j_rank_matrix = jax.jit(j_ranks.normalized_rank_matrix,
                         static_argnames=("stable", "compact"))

@@ -8,13 +8,24 @@ Pallas kernel in another order (rtol 2e-6, atol 1e-5, the JAX tests'
 own); bf16 input is widened to f32 exactly on both sides, so the same
 bound holds; the HGT gradients compare whole encoders whose segment
 softmaxes also sum in another order (rtol 5e-5 and atol 1e-5 of the
-largest gradient of each tensor).
+largest gradient of each tensor). The kernel's order of the sums
+(`sorted_segment_sum_ordered`, pieces of P rows) is held to the plain
+version exactly on small-integer rows, whose f32 sums are exact in any
+order. On randn rows its segments are too long for TOL (hundreds of f32
+adds in a row drift by about 3e-5 between two orders), so each order is
+held to the float64 sum within the rounding bound of
+`_within_rounding_bound`, 6u times the root of the squared running sums.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from madrigal_tpu.config import HGTConfig as JHGTConfig
 from madrigal_tpu.data.kg import _src_sort_layout as j_src_sort_layout
@@ -35,11 +46,19 @@ from madrigal_tpu_torch.ops.gather import gather_rows_sorted
 from madrigal_tpu_torch.ops.segment_sorted import (
     segment_starts_np,
     sorted_segment_sum,
+    sorted_segment_sum_ordered,
     sorted_segment_sum_plain,
     supports_sorted_segment_sum,
 )
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 TOL = dict(rtol=2e-6, atol=1e-5)
+# P as the kernel's source sets it (on the card the wrapper reads it from
+# the built library, `segment_sorted.split_rows()`)
+P = int(re.search(
+    r"constexpr int kSplitRows = (\d+);",
+    (Path(t_gather.__file__).parent.parent / "csrc" / "segment_sum.cu")
+    .read_text()).group(1))
 
 
 def _sorted_rows(e, n, w, seed, real=None):
@@ -69,6 +88,152 @@ def test_plain_matches_pallas_kernel(e, n, w, real):
                                torch.from_numpy(starts), n)
     assert sorted_segment_sum.launches == before
     torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def _within_rounding_bound(got, data, starts, n):
+    """Each segment's f32 sum `got` [n, W] against the float64 sum of its
+    rows, within 6u * sqrt(sum_k S_k^2) (u = 2^-24, S_k the float64 running
+    sums of the segment's rows in row order): an f32 add rounds its result
+    S by at most u|S|, and independent roundings give a standard deviation
+    of about u / sqrt(3) times that root, so the bound is about 10 of them,
+    whichever order the adds take. Read on this file's cases: the kernel's
+    order, `index_add_` and the Pallas kernel reach at most 2.5 of the
+    root, at 1,027 rows and 128 columns; gamma_L * sum|x| is 60 to 200
+    times wider at these lengths. A dropped or doubled piece of randn rows
+    is off by about sqrt(P), some 10^5 times the bound."""
+    d = np.asarray(data, np.float64)
+    exact = np.zeros((n, d.shape[1]))
+    root = np.zeros((n, d.shape[1]))
+    for i in range(n):
+        b, e = max(int(starts[i]), 0), int(starts[i + 1])
+        run = np.cumsum(d[b:e], axis=0)
+        if len(run):
+            exact[i], root[i] = run[-1], np.sqrt((run ** 2).sum(axis=0))
+    err = np.abs(np.asarray(got, np.float64) - exact)
+    assert (err <= 6 * 2.0 ** -24 * root).all(), (err / root).max()
+    return exact
+
+
+def _rows_of_lengths(lengths, pad, w, seed, ints=False, lead=0):
+    """[lead + sum(lengths) + pad, w] rows: segment i holds lengths[i]
+    rows after `lead` rows that belong to none, then `pad` rows of
+    trailing padding; randn rows, or small integers with `ints`."""
+    rng = np.random.RandomState(seed)
+    starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    starts += lead
+    e = int(starts[-1]) + pad
+    data = (rng.randint(-8, 9, (e, w)) if ints else rng.randn(e, w))
+    return data.astype(np.float32), starts
+
+
+ORDER_CASES = {
+    # lengths about P, empty segments, trailing padding
+    "about_p": ([P - 1, P, 0, P + 1, 2 * P, 3, 0, 3 * P + 5], 37, 0),
+    # one segment holding every row
+    "one_segment": ([3 * P + 5], 0, 0),
+    # rows before the first segment, which belong to none
+    "lead": ([2 * P + 1, 1, P + 2], 5, 11),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+@pytest.mark.parametrize("ints", [False, True])
+def test_ordered_matches_plain(case, ints):
+    """The kernel's order against the plain version: exactly on
+    small-integer rows; on randn rows both within the rounding bound of
+    the float64 sums."""
+    lengths, pad, lead = ORDER_CASES[case]
+    data, starts = _rows_of_lengths(lengths, pad, 7, seed=len(lengths),
+                                    ints=ints, lead=lead)
+    d, s = torch.from_numpy(data), torch.from_numpy(starts)
+    n = len(lengths)
+    got = sorted_segment_sum_ordered(d, s, n, P)
+    ref = sorted_segment_sum_plain(d, s, n)
+    assert got.dtype == torch.float32 and got.shape == (n, 7)
+    if ints:
+        assert torch.equal(got, ref)
+    else:
+        for sums in (got, ref):
+            _within_rounding_bound(sums.numpy(), data, starts, n)
+    for i, length in enumerate(lengths):  # empty segments are zeros
+        if length == 0:
+            assert not got[i].any()
+
+
+def test_ordered_is_the_piecewise_sum():
+    """One segment of 3P + 5 rows: the result is, bit for bit, the sum of
+    its four pieces' partials in ascending order, each partial its rows
+    summed one after another from 0."""
+    data, starts = _rows_of_lengths([4, 3 * P + 5, 2], 3, 6, seed=1)
+    got = sorted_segment_sum_ordered(torch.from_numpy(data),
+                                     torch.from_numpy(starts), 3, P)
+    b, e = int(starts[1]), int(starts[2])
+    partials = []
+    for ps in range(b, e, P):
+        acc = np.zeros(6, np.float32)
+        for t in range(ps, min(ps + P, e)):
+            acc = acc + data[t]
+        partials.append(acc)
+    assert len(partials) == 4
+    want = partials[0]
+    for p in partials[1:]:
+        want = want + p
+    assert np.array_equal(got[1].numpy(), want)
+    # a segment of at most P rows: the rows summed in order from 0
+    want = np.zeros(6, np.float32)
+    for t in range(int(starts[0]), int(starts[1])):
+        want = want + data[t]
+    assert np.array_equal(got[0].numpy(), want)
+
+
+def test_ordered_matches_pallas_kernel():
+    """The kernel's order against the JAX package's Pallas kernel in
+    interpret mode, at a shape with a segment of 2P + 3 rows: both within
+    the rounding bound of the float64 sums, and within TOL on the
+    segments of at most P rows."""
+    data, starts = _rows_of_lengths([5, 2 * P + 3, 0, 40, 1], 20, 128,
+                                    seed=2)
+    want = sorted_segment_sum_mxu(jnp.asarray(data), jnp.asarray(starts), 5)
+    got = sorted_segment_sum_ordered(torch.from_numpy(data),
+                                     torch.from_numpy(starts), 5, P)
+    for sums in (got.numpy(), np.asarray(want)):
+        _within_rounding_bound(sums, data, starts, 5)
+    short = np.diff(starts) <= P
+    np.testing.assert_allclose(got.numpy()[short], np.asarray(want)[short],
+                               **TOL)
+
+
+@st.composite
+def _layouts(draw):
+    """(starts, rows, P): small P, segment lengths about it (P and P + 1
+    among them), empty segments, rows before the first segment, trailing
+    padding, and a single segment holding every row."""
+    p = draw(st.sampled_from([1, 2, 3, 4, 8]))
+    length = st.one_of(st.integers(0, 4 * p + 2),
+                       st.sampled_from([0, p, p + 1]))
+    lengths = draw(st.lists(length, min_size=1, max_size=12))
+    lead = draw(st.integers(0, 2 * p))
+    pad = draw(st.integers(0, 2 * p))
+    starts = np.concatenate([[0], np.cumsum(lengths)]) + lead
+    return starts.astype(np.int32), int(starts[-1]) + pad, p
+
+
+@settings(max_examples=300, deadline=None)
+@given(_layouts())
+def test_ordered_matches_plain_on_drawn_layouts(layout):
+    """The kernel's order at a small P on drawn layouts (segments of P and
+    P + 1 rows and of up to 4P + 2, empty ones, rows before the first,
+    trailing padding, one segment holding every row): the sums of the
+    plain version exactly on small-integer rows, and zeros for an empty
+    segment."""
+    starts, rows, p = layout
+    n = len(starts) - 1
+    data = torch.from_numpy(np.random.RandomState(rows).randint(
+        -8, 9, (rows, 3)).astype(np.float32))
+    s = torch.from_numpy(starts)
+    got = sorted_segment_sum_ordered(data, s, n, p)
+    assert torch.equal(got, sorted_segment_sum_plain(data, s, n))
+    assert not got[torch.from_numpy(np.diff(starts) == 0)].any()
 
 
 def test_plain_bf16_input_sums_in_f32():

@@ -57,6 +57,7 @@ from madrigal_tpu_torch.ops.segment_sorted import sorted_sum
 from madrigal_tpu_torch.parallel import dryrun as D
 from tests.test_torch_alt_encoders import alt_cfg, port_model
 from tests.test_torch_stage1 import to_flax
+from test_torch_train import one_thread  # noqa: F401  (fixture)
 
 DATASET = dict(num_drugs=14, num_labels=4, num_edges=24, seed=8)
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -52,6 +52,7 @@ from test_torch_train import (
     assert_three_steps_match_jax,
     carried_trainers,
     data,  # noqa: F401  (the module-scoped fixture)
+    one_thread,  # noqa: F401  (fixture)
 )
 
 BN_LEAVES = ("running_mean", "running_var", "num_batches_tracked")
