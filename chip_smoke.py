@@ -40,9 +40,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
      and at the shapes the paths give them (K2: every edge type the
      full-scale training run and the stage-1 kg run reduce in the source
      gathers' backward, and the sums K2 carries besides, k2_sum_checks:
-     the 128-wide messages f32 and bf16 and the 4-wide softmax
-     denominators at ppi, the molecule batch's sums and readout, a hub
-     segment and a Zipf-like draw on small-integer and on randn rows,
+     the 128-wide messages f32 and bf16, the 4-wide softmax
+     denominators and rows of K2_NARROW_WIDTHS at ppi (each width a
+     group size of K2's lanes), the molecule batch's sums and readout, a
+     hub segment and a Zipf-like draw on small-integer and on randn rows,
      chemCPA's covariate segments, and segments of at most P and P + 1
      rows; the source gathers of one training step, 15 launches, and of
      one stage-1 kg step, 34; K2 everywhere also equal bit for bit to
@@ -50,7 +51,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
      CUDA events beside the plain version, one PyTorch call computing
      the same function (`library_ms`, timed only here), `index_add_`
      (the sums the port ran before K2 carried them) and the card's
-     bound;
+     bound; K2's and the library call's device time a call at the timed
+     shapes comes from torch.profiler at the end of the run (`device_ms`,
+     k2_device_times: at tens of us the events time the host);
   4. small: the serving path on a small dataset on the card against the
      same model on the CPU;
   5. serving: the serving path at full width, with every kernel's launch
@@ -460,6 +463,12 @@ K2_MOL_DRUGS = 1024
 K2_COV_DRUGS = NUM_DRUGS
 # the segments of the longest-is-P and longest-is-P + 1 checks
 K2_ABOUT_P_SEGMENTS = 2000
+# ppi's rows at these widths beside the 4-wide denominators: each takes
+# another group size of K2's lanes a row (G = 1, 2, 2, 4, 16 for f32)
+K2_NARROW_WIDTHS = (1, 2, 8, 16, 64)
+# calls a device time is the median of (each in a profiler window), and
+# the sleep that opens and closes a window (device_ms)
+DEVICE_ITERS, DEVICE_LEAD_S = 20, 0.01
 
 
 def emit(obj) -> None:
@@ -565,6 +574,84 @@ def cuda_ms(fn, iters: int) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def device_ms(fns: dict, iters: int) -> tuple:
+    """({label: median device time of one call of fns[label] in ms},
+    {label: {device operation: its median ms a call}}, the median of a
+    kernel's start less its launch's in the trace, us): the durations of
+    the kernels, copies and sets each call ran, summed, from
+    torch.profiler (CUPTI) over `iters` calls of each function in turns
+    (in order, then in reverse, and so on: a call reads what the one
+    before it left in the L2 cache), after a warm-up call of each. Each
+    call is named (`record_function`) and ends in a synchronize; a device
+    operation is the call's whose named span holds the runtime call that
+    launched it (the two share a correlation id). The device's timestamps are not used: in a
+    process's later profiler windows the trace can shift them against
+    the host's by milliseconds (the last value returned: a start before
+    its launch), and it can lose a window's first operations, so the
+    window opens with a throwaway kernel and DEVICE_LEAD_S of sleep and
+    closes with the same sleep, and a call with no operation in the trace
+    is left out (at most half of each function's). Those windows also
+    cost a later window of the process its first kernels (the profile
+    phase's one K1 call, after the LM phase), so `main` measures after
+    the profile phase (k2_device_times)."""
+    from bisect import bisect_right
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(DEVICE_LEAD_S)
+        for i in range(iters):
+            for label, fn in list(fns.items())[::1 - 2 * (i % 2)]:
+                with torch.profiler.record_function(f"{label}#{i}"):
+                    fn()
+                    torch.cuda.synchronize()
+        time.sleep(DEVICE_LEAD_S)
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "device_ms_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    path.unlink()
+    names = {f"{label}#{i}" for label in fns for i in range(iters)}
+    calls = sorted((e["ts"], e["ts"] + e["dur"], e["tid"], e["name"])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"] in names)
+    require(len(calls) == len(names), "device_ms: the trace lacks calls")
+    starts = [c[0] for c in calls]
+    launched_in = {}  # correlation id -> (the call that launched it, ts)
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            i = bisect_right(starts, e["ts"]) - 1
+            if i >= 0 and e["ts"] <= calls[i][1] and e["tid"] == calls[i][2]:
+                launched_in[corr] = (calls[i][3], e["ts"])
+    per_call = {name: {} for name in names}  # {call: {operation: us}}
+    shift = []
+    for e in events:
+        call, ts = launched_in.get(e.get("args", {}).get("correlation"),
+                                   (None, 0.0))
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and call:
+            shift.append(e["ts"] - ts)
+            op = e["name"].replace("(anonymous namespace)::", "")
+            op = op.split("(")[0].removeprefix("void ")[:80]
+            per_call[call][op] = per_call[call].get(op, 0.0) + e["dur"]
+    ms, by_op = {}, {}
+    for label in fns:
+        runs = [r for i in range(iters) if (r := per_call[f"{label}#{i}"])]
+        require(2 * len(runs) >= iters, f"device_ms: the trace holds the "
+                f"device operations of {len(runs)} of {iters} {label} calls")
+        ms[label] = float(np.median([sum(r.values()) for r in runs])) / 1e3
+        by_op[label] = {op: float(np.median([r.get(op, 0.0) for r in runs]))
+                        / 1e3 for op in set().union(*runs)}
+    return ms, by_op, float(np.median(shift))
 
 
 def max_err(got: torch.Tensor, ref: torch.Tensor):
@@ -732,7 +819,10 @@ def k2_rows_check(data, starts, n: int, iters: int = 0,
     widen to f32 exactly); two launches give the same bits. With iters,
     also time the kernel, the plain version, the one-call PyTorch
     yardstick and `index_add_` (the sums the port ran before K2 carried
-    them, on the rows widened to f32), beside the bytes bound."""
+    them, on the rows widened to f32) between CUDA events, beside the
+    bytes bound (`k2_device_times` adds the device times). The row names
+    the kernel's lanes: VEC values a lane, G lanes a row
+    (`segment_sorted.lane_group`)."""
     split = segment_sorted.split_rows()
     got = segment_sorted.sorted_segment_sum(data, starts, n)
     again = segment_sorted.sorted_segment_sum(data, starts, n)
@@ -745,8 +835,11 @@ def k2_rows_check(data, starts, n: int, iters: int = 0,
     scale = ref.abs().max().item()
     e_real = int(starts[-1])
     sizes = (starts[1:] - starts[:-1]).max().item() if n else 0
+    vec, group = segment_sorted.lane_group(data.shape[1], data.dtype,
+                                           data.data_ptr())
     row = {"E": data.shape[0], "E_real": e_real, "N": n, "W": data.shape[1],
-           "in": DTYPE_NAME[data.dtype], "iters": iters, "max_abs_err": err,
+           "in": DTYPE_NAME[data.dtype], "vec": vec, "lane_group": group,
+           "iters": iters, "max_abs_err": err,
            "max_abs_plain": scale,
            "tol": None if rtol is None else rtol * scale,
            "largest_segment": int(sizes), "split_rows": split,
@@ -869,7 +962,8 @@ def k2_uses():
     readout (128 wide) and the GAT's denominators; the skewed cases at
     ppi's size: one hub segment holding K2_HUB_SHARE of the rows, 128 and
     4 wide, and a Zipf-like draw, 128 wide, each on small-integer rows
-    (timed) and on randn rows (not timed); chemCPA's covariate
+    (timed) and on randn rows (not timed); ppi's rows at each of
+    K2_NARROW_WIDTHS (uniform, f32, timed); chemCPA's covariate
     embedding's gradient (K2_COV_DRUGS rows in each of NUM_CELL_LINES
     segments, 128 wide); and segments about the kernel's split length P,
     the longest P and the longest P + 1."""
@@ -886,6 +980,7 @@ def k2_uses():
                      ("hub_messages", K2_MSG_WIDTH, f32, "hub"),
                      ("hub_denominators", K2_HEADS, f32, "hub"),
                      ("zipf_messages", K2_MSG_WIDTH, f32, "zipf")]
+            uses += [("narrow", w, f32, "uniform") for w in K2_NARROW_WIDTHS]
         for use, w, dt, draw in uses:
             fields = {"use": use, "edge_type": "__".join(et), "draw": draw}
             n = nodes[et[2]]
@@ -981,6 +1076,47 @@ def k2_step(shrink: int, link_split: bool = False) -> dict:
             "bound_ms": sum(bound[et] for et in launches)}
 
 
+def k2_timed_inputs():
+    """(rows, starts, segments) of phase_k2_kernels' timed rows, made
+    again from their seeds, in the rows' order."""
+    for _, data, starts, n, iters in k2_uses():
+        if iters:
+            yield data, starts, n
+    e_real, e_pad, n = k2_shapes(TRAIN_SHRINK, link_split=True)[K2_TIMED[-1]]
+    yield *k2_inputs(e_real, e_pad, n, torch.float32, seed=9), n
+    for et, (e_real, e_pad, n) in k2_shapes(TRAIN_SHRINK).items():
+        if et in K2_TIMED:
+            yield *k2_inputs(e_real, e_pad, n, torch.float32, seed=6), n
+
+
+def k2_device_times(rows: list) -> list:
+    """K2's and `torch.segment_reduce`'s device time a call (`device_ms`)
+    at each timed row of phase_k2_kernels, added to the row; the rows
+    with them. `main` runs it after the profile phase: the profiler
+    windows it opens would cost that phase's K1 window its kernel."""
+    timed = [r for r in rows if "ms" in r]
+    for row, (data, starts, n) in zip(timed, k2_timed_inputs(), strict=True):
+        require((data.shape[0], n, data.shape[1], DTYPE_NAME[data.dtype])
+                == (row["E"], row["N"], row["W"], row["in"]),
+                f"k2_device_times: inputs made again are not {row}")
+        offsets = starts.long()
+        dev, ops, row["device_clock_shift_us"] = device_ms(
+            {"k2": lambda: segment_sorted.sorted_segment_sum(data, starts, n),
+             "library": lambda: torch.segment_reduce(data, "sum",
+                                                     offsets=offsets)},
+            DEVICE_ITERS)
+        row["device_ms"], row["library_device_ms"] = dev["k2"], dev["library"]
+        row["device_ops"], row["library_device_ops"] = ops["k2"], ops["library"]
+        del data, starts, offsets
+    torch.cuda.empty_cache()
+    keys = ("use", "edge_type", "E", "N", "W", "in", "vec", "lane_group",
+            "ms", "device_ms", "library_ms", "library_device_ms",
+            "device_ops", "library_device_ops", "device_clock_shift_us")
+    out = [{k: r[k] for k in keys if k in r} for r in timed]
+    emit({"phase": "k2_device", "rows": out})
+    return out
+
+
 def tree_segment_sorted(tree: Path, i: int):
     """`ops/segment_sorted.py` of the checkout at `tree`, imported from
     there as the module of a package of its own (`k2_tree<i>`), with its
@@ -1016,8 +1152,10 @@ def phase_k2_against(trees: list) -> list:
     segment in one piece), else to `sorted_segment_sum_ordered` at its P.
     Then each is timed in turns (the trees in order, then in reverse,
     twice): the median of CUDA-event pairs (`ms`) and the host's time to
-    issue a call (`host_us`), beside `torch.segment_reduce`, `index_add_`
-    and the bytes bound."""
+    issue a call (`host_us`); then the device time a call of each tree's
+    and of `torch.segment_reduce` (`device_ms`, calls in turns), beside
+    `torch.segment_reduce`'s event time, `index_add_` and the bytes
+    bound."""
     mods = {"this": segment_sorted}
     for i, tree in enumerate(trees):
         mods[tree.name] = tree_segment_sorted(tree, i)
@@ -1076,10 +1214,21 @@ def phase_k2_against(trees: list) -> list:
         wide = data.float()
         out = torch.zeros((n + 1, data.shape[1]), device=data.device)
         offsets = starts.long()
+        calls = {label: (lambda k2=m.sorted_segment_sum: k2(data, starts, n))
+                 for label, m in mods.items()}
+        calls["library"] = lambda: torch.segment_reduce(data, "sum",
+                                                        offsets=offsets)
+        dev, dev_ops, shift = device_ms(calls,
+                                        min(*reps.values(), DEVICE_ITERS))
+        vec, group = segment_sorted.lane_group(data.shape[1], data.dtype,
+                                               data.data_ptr())
         row = {**fields, "E": data.shape[0], "N": n, "W": data.shape[1],
-               "in": DTYPE_NAME[data.dtype], "largest_segment": largest,
+               "in": DTYPE_NAME[data.dtype], "vec": vec, "lane_group": group,
+               "largest_segment": largest,
                "ms": {label: float(np.median(v)) for label, v in ms.items()},
                "ms_turns": ms,
+               "device_ms": dev, "device_ops": dev_ops,
+               "device_clock_shift_us": shift,
                "host_us": {label: float(np.median(v))
                            for label, v in host.items()},
                "library_ms": cuda_ms(lambda: torch.segment_reduce(
@@ -4412,7 +4561,7 @@ def main(argv) -> int:
     run("build", phase_build, argv == [])
     if argv == ["--kernels"]:
         phase_kernels()
-        phase_k2_kernels()
+        k2_device_times(phase_k2_kernels())
         print(gpu_line(), flush=True)
         return 0
     k1_checks = run("kernels", phase_kernels)
@@ -4472,6 +4621,8 @@ def main(argv) -> int:
         "data_dir", phase_data_dir, stage2)
     shutil.rmtree(WORK / "pretrain")
     paths["all_train"] = run("all_train", phase_all_train)
+    # K2's device times, after every other profiler window of the process
+    run("k2_device", k2_device_times, k2_checks)
     main_s = time.perf_counter() - t_start
     stage2_s = sum(wall[p] for p in ("pretrain_small", "pretrain",
                                      "pretrain_final_embeds"))

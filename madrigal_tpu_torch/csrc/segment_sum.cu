@@ -16,21 +16,43 @@
 // fused k|v table (W = 256): the cotangent rows, permuted into source
 // order outside the kernel, reduce into one gradient row per source node.
 //
-// What bounds it: bytes. Each input row is read once and each output row
-// written once: E*W*sizeof(in) + N*W*4 + (N+1)*4 bytes, at 3.35 TB/s on
-// an H100 SXM. For the protein-ppi-protein edge type of the PrimeKG-scale
+// What bounds the wide shapes: bytes. Each input row is read once and
+// each output row written once: E*W*sizeof(in) + N*W*4 + (N+1)*4 bytes,
+// at 3.35 TB/s on an H100 SXM. For the protein-ppi-protein edge type of the PrimeKG-scale
 // graph (E = 1,200,128, N = 27,000, W = 256, f32) that is about 1.26 GB,
 // 0.375 ms; all 17 edge types of one HGT layer move about 8.8 GB, 2.6 ms.
 //
-// Design: one warp owns one piece of a segment and one group of 32 * VEC
-// columns; each lane owns VEC contiguous columns, so a warp reads each
-// row's group as one contiguous stretch. VEC = 8 where W is a multiple of
-// 256 (two float4 loads of f32, or one 16-byte load of bf16 / f16, per row
-// and lane), VEC = 4 where W is a multiple of 4 (the last group may leave
-// lanes idle), VEC = 1 for any other width; a vector load is used only
-// where the rows are aligned for it. The lane loops over the piece with an
-// f32 register accumulator and writes its columns once. No atomics, no
-// shared memory and no padding; an empty segment writes zeros.
+// Design. A work item is one piece of a segment; the lanes of a warp are
+// cut into groups of G, and each group sums one item. A lane owns VEC
+// contiguous columns, so a group reads each row's columns as one
+// contiguous stretch. VEC = 8 where W is a multiple of 256 (two float4
+// loads of f32, or one 16-byte load of bf16 / f16, per row and lane),
+// VEC = 4 where W is a multiple of 4, VEC = 1 for any other width; a
+// vector load is used only where the rows are aligned for it. G is the
+// lanes a row needs, ceil(W / VEC), rounded up to a power of two and at
+// most 32 (`mapping`; C entries madrigal_segment_lane_group and
+// madrigal_segment_vector).
+//
+// - Wide rows, W > 16 * VEC (G = 32): one warp owns one item and one
+//   group of 32 * VEC columns (`segment_sum_kernel`): the lane loops
+//   over the piece with an f32 register accumulator, four rows unrolled,
+//   and writes its columns once.
+// - Narrow rows (G < 32): a warp takes 32 / G items, one a group of G
+//   lanes (`segment_groups_kernel`), all columns at once. At W = 4 (the
+//   4-wide softmax denominators) each of the 32 lanes sums a piece of
+//   its own; one warp a piece would leave 31 lanes idle. What bounds
+//   these shapes is the latency of a lane's chain of loads, not bytes
+//   (a segment of ppi's destinations is 44 rows of 16 bytes on average,
+//   a piece of a hub 512): so each lane issues the loads of kAhead rows
+//   together, then adds them in row order, and a piece of P rows takes
+//   P / kAhead round trips to memory. A lane whose piece ends neither
+//   loads nor adds the rows past it. The lanes of a warp walk pieces of
+//   other lengths; nothing is shared between them, so no shuffle or
+//   ballot runs in these loops. A block is one warp, so that a hub's
+//   pieces (32 a warp) spread over as many SMs as warps.
+//
+// No atomics, no shared memory in the sums and no padding; an empty
+// segment writes zeros.
 //
 // The order of every sum, fixed by P = kSplitRows alone (the plain
 // PyTorch form is `sorted_segment_sum_ordered` in ops/segment_sorted.py):
@@ -38,31 +60,33 @@
 // in ascending order. A longer one is cut into pieces of P rows, piece k
 // holding rows [b + kP, min(b + (k + 1)P, e)); each piece is summed as a
 // short segment into a partial p_k, and out = (..((p_0 + p_1) + p_2) ..),
-// in ascending k. So no warp walks more than P rows, however skewed the
+// in ascending k. So no lane walks more than P rows, however skewed the
 // degrees (a hub node, chemCPA's covariate segments of one row a drug).
+// G and VEC change which lane adds a value, never the order of the adds.
 //
 // Two launches (one where E <= P, as no segment can be longer). The first
-// has ceil(E / P) chunk warps, then N segment warps. Segment warp s sums
-// piece 0 of segment s (its first min(L, P) rows) into out[s]. Chunk warp
+// has ceil(E / P) chunk items, then N segment items. Segment item s sums
+// piece 0 of segment s (its first min(L, P) rows) into out[s]. Chunk item
 // c takes rows [cP, (c + 1)P): it finds the segment A holding row cP by a
-// search in `starts` (32 probes a round, one a lane) and, if a piece
-// k >= 1 of A starts inside the chunk, sums that piece into scratch[c]. A
-// chunk holds at most one such piece start: pieces start P rows apart, and
-// a segment that begins inside the chunk has its piece 1 past the chunk's
-// end. The chunk warps come first so that the long pieces start early.
-// In the second launch a block reads 1,024 segments' spans, one a thread,
-// lists those longer than P, and its 32 warps take them in turn: for each,
-// a warp adds scratch[(b + kP) / P] for k = 1, 2, ... to out[s], in order.
-// The scratch is ceil(E / P) * W f32, allocated by the wrapper.
-//
-// Known weakness: at narrow widths (the 4-wide softmax denominators) one
-// lane of a warp works and 31 wait, and a short segment leaves its warp
-// waiting on the latency of a few loads. A mapping of several rows or
-// segments to a warp at narrow widths, and pipelined loads (cp.async), are
-// later work.
+// search in `starts` and, if a piece k >= 1 of A starts inside the chunk,
+// sums that piece into scratch[c]. A chunk holds at most one such piece
+// start: pieces start P rows apart, and a segment that begins inside the
+// chunk has its piece 1 past the chunk's end. The chunk items come first
+// so that the long pieces start early. At G = 32 the warp searches
+// together (32 probes a round, 3 rounds at 27,000 segments); at G < 32
+// each lane runs a search of its own, kProbes probes a round (8 trips to
+// memory at 27,000 segments), since a collective search would run once
+// for each of the warp's 32 / G chunks in turn (96 rounds at G = 1).
+// In the second launch a block reads 1,024 segments' spans (256 at
+// G < 32), one a thread, and lists those longer than P; its warps take
+// them in turn (a group of G lanes each at G < 32, G from W and the f32
+// scratch's alignment): for each, the group adds scratch[(b + kP) / P]
+// for k = 1, 2, ... to out[s], in order. The scratch is ceil(E / P) * W
+// f32, allocated by the wrapper.
 //
 // C entries: madrigal_sorted_segment_sum(...) returns cudaGetLastError();
-// madrigal_segment_split_rows() returns P.
+// madrigal_segment_split_rows() returns P; madrigal_segment_lane_group and
+// madrigal_segment_vector return the G and VEC of a launch.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,9 +95,15 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block of the first launch
+constexpr int kWarps = 8;  // warps per block of the first launch, G = 32
 constexpr int kThreads = kWarps * 32;
+constexpr int kGroupWarps = 1;  // warps per block of the first launch, G < 32
+constexpr int kAhead = 16;  // rows a lane loads before it adds them, G < 32
+constexpr int kProbes = 4;  // probes a round of a lane's search, G < 32
 constexpr int kCombineThreads = 1024;  // threads per block of the second
+// threads per block of the second launch at G < 32 (fewer than
+// kCombineThreads, so that a lane's kAhead partials fit its registers)
+constexpr int kCombineGroupThreads = 256;
 
 constexpr int kSplitRows = 512;  // P, the rows of a piece (see above)
 
@@ -123,6 +153,79 @@ template <typename T, int VEC> struct Row {
   }
 };
 
+// VEC contiguous values of one row as loaded (VEC = 1 or 4), then widened
+// to f32 and added to acc: the loads of several rows can be issued
+// before their adds
+template <typename T, int VEC> struct Loaded {
+  using V = T;  // VEC = 1
+  static __device__ __forceinline__ V load(const T* p) { return __ldg(p); }
+  static __device__ __forceinline__ void add(V v, float* acc) {
+    acc[0] += widen(v);
+  }
+};
+template <> struct Loaded<float, 4> {
+  using V = float4;
+  static __device__ __forceinline__ V load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void add(V v, float* acc) {
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+    acc[3] += v.w;
+  }
+};
+template <typename T> struct Loaded16x4 {  // four bf16 or f16 values
+  using V = uint2;
+  static __device__ __forceinline__ V load(const T* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void add(V v, float* acc) {
+    const float2 lo = widen2(v.x, T()), hi = widen2(v.y, T());
+    acc[0] += lo.x;
+    acc[1] += lo.y;
+    acc[2] += hi.x;
+    acc[3] += hi.y;
+  }
+};
+template <> struct Loaded<bf16, 4> : Loaded16x4<bf16> {};
+template <> struct Loaded<__half, 4> : Loaded16x4<__half> {};
+
+// acc += rows p, p + stride, ..., n of them, in that order: the loads of
+// kAhead rows are issued together, then added one row after another; the
+// rows past the n-th are neither loaded nor added
+template <typename T, int VEC>
+__device__ __forceinline__ void add_rows_ahead(const T* p, int64_t n,
+                                               int64_t stride, float* acc) {
+  using L = Loaded<T, VEC>;
+  typename L::V v[kAhead];
+  for (; n >= kAhead; n -= kAhead, p += kAhead * stride) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) v[i] = L::load(p + i * stride);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) L::add(v[i], acc);
+  }
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i)
+    if (i < n) v[i] = L::load(p + i * stride);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i)
+    if (i < n) L::add(v[i], acc);
+}
+
+// VEC f32 values of acc to dst (float4 stores for VEC = 4 or 8)
+template <int VEC>
+__device__ __forceinline__ void store(const float* acc, float* dst) {
+  if constexpr (VEC == 1) {
+    dst[0] = acc[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] = make_float4(
+          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
 // rows [b, e) of the lane's VEC columns, summed in f32 from 0 in ascending
 // row order, written to dst
 template <typename T, int VEC>
@@ -137,15 +240,20 @@ __device__ __forceinline__ void sum_rows(const T* __restrict__ data,
 #pragma unroll 4
   for (int64_t t = b; t < e; ++t, p += W) Row<T, VEC>::add(p, acc);
 
-  float* o = dst + col;
-  if constexpr (VEC == 1) {
-    o[0] = acc[0];
-  } else {
+  store<VEC>(acc, dst + col);
+}
+
+// the same sum as sum_rows, kAhead rows in flight (G < 32)
+template <typename T, int VEC>
+__device__ __forceinline__ void sum_rows_ahead(const T* __restrict__ data,
+                                               int64_t b, int64_t e, int W,
+                                               int64_t col,
+                                               float* __restrict__ dst) {
+  float acc[VEC];
 #pragma unroll
-    for (int i = 0; i < VEC / 4; ++i)
-      reinterpret_cast<float4*>(o)[i] = make_float4(
-          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
-  }
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+  add_rows_ahead<T, VEC>(data + b * W + col, e - b, W, acc);
+  store<VEC>(acc, dst + col);
 }
 
 // segment s's span, clipped to the real rows [0, min(starts[N], E))
@@ -177,8 +285,33 @@ __device__ __forceinline__ int64_t find_segment(const int* __restrict__ starts,
       0xffffffffu, c <= hi && __ldg(starts + c) <= r));
 }
 
-// first launch: warps [0, chunks) are chunk warps, warps [chunks,
-// chunks + N) segment warps
+// the same segment as find_segment, found by one lane alone: kProbes
+// independent probes a round, so that a round costs one trip to memory
+// (8 trips at 27,000 segments, where a binary search takes 15)
+__device__ __forceinline__ int64_t search_segment(
+    const int* __restrict__ starts, int N, int64_t r) {
+  int64_t lo = 0, hi = N - 1;  // starts[lo] <= r; the answer lies in [lo, hi]
+  while (hi - lo >= kProbes) {
+    const int64_t step = (hi - lo + kProbes - 1) / kProbes;
+    // starts is sorted, so the probes at or below r are a prefix
+    int below = 0;
+#pragma unroll
+    for (int i = 1; i <= kProbes; ++i) {
+      const int64_t probe = lo + i * step;
+      below += probe <= hi && __ldg(starts + probe) <= r;
+    }
+    if (below < kProbes) hi = min(hi, lo + (below + 1) * step - 1);
+    lo += below * step;
+  }
+  int below = 0;
+#pragma unroll
+  for (int i = 1; i < kProbes; ++i)
+    below += lo + i <= hi && __ldg(starts + lo + i) <= r;
+  return lo + below;
+}
+
+// first launch at G = 32: warps [0, chunks) are chunk warps, warps
+// [chunks, chunks + N) segment warps
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
@@ -216,6 +349,79 @@ segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ starts,
   if (active) sum_rows<T, VEC>(data, ps, pe, W, col, scratch + g * W);
 }
 
+// first launch at G = 1 << log_group < 32: item i (chunk items [0,
+// chunks), then segment items) goes to group i % (32 / G) of warp
+// i / (32 / G); a lane owns columns [l * VEC, (l + 1) * VEC) of its
+// group's item, l its place in the group
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kGroupWarps * 32)
+segment_groups_kernel(const T* __restrict__ data,
+                      const int* __restrict__ starts, float* __restrict__ out,
+                      float* __restrict__ scratch, int64_t E, int N, int W,
+                      int64_t chunks, int log_group) {
+  const int lane = threadIdx.x % 32;
+  const int64_t warp = (int64_t)blockIdx.x * kGroupWarps + threadIdx.x / 32;
+  const int64_t g = (warp << (5 - log_group)) + (lane >> log_group);
+  const int64_t col = (int64_t)(lane & ((1 << log_group) - 1)) * VEC;
+  if (g >= chunks + N || col >= W) return;  // this lane alone
+  int64_t end = __ldg(starts + N);
+  end = end < E ? end : E;
+  int64_t b, e;
+
+  if (g >= chunks) {  // segment item: piece 0, the first min(L, P) rows
+    const int64_t s = g - chunks;
+    span(starts, end, s, b, e);
+    const int64_t e0 = e - b > kSplitRows ? b + kSplitRows : e;
+    sum_rows_ahead<T, VEC>(data, b, e0, W, col, out + s * W);
+    return;
+  }
+
+  // chunk item: the piece k >= 1 that starts in rows [r, r + P), if any
+  const int64_t r = g * kSplitRows;
+  if (r >= end || r < __ldg(starts)) return;
+  span(starts, end, search_segment(starts, N, r), b, e);
+  if (e - b <= kSplitRows) return;
+  const int64_t k = (r - b + kSplitRows - 1) / kSplitRows;
+  const int64_t ps = b + k * kSplitRows;  // in [r, r + P)
+  if (k == 0 || ps >= e) return;
+  const int64_t pe = e - ps > kSplitRows ? ps + kSplitRows : e;
+  sum_rows_ahead<T, VEC>(data, ps, pe, W, col, scratch + g * W);
+}
+
+// the segments of [first block segment, + kBlock) longer than P, listed
+// in shared memory in ascending order (a prefix count of the warps'
+// ballots, no atomics): entry j is segment ids[j], rows [first[j],
+// last[j]); returns the count. Every thread of the block (kBlock of
+// them, one a segment) calls it.
+template <int kBlock>
+__device__ __forceinline__ int list_long_segments(
+    const int* __restrict__ starts, int64_t E, int N, int64_t* first,
+    int64_t* last, int64_t* ids, int* counts) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t s = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  int64_t end = __ldg(starts + N);
+  end = end < E ? end : E;
+  int64_t b = 0, e = 0;
+  if (s < N) span(starts, end, s, b, e);
+  const bool split = e - b > kSplitRows;
+  const unsigned ballot = __ballot_sync(0xffffffffu, split);
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int slot = __popc(ballot & ((1u << lane) - 1)), listed = 0;
+  for (int w = 0; w < kBlock / 32; ++w) {
+    slot += w < warp ? counts[w] : 0;
+    listed += counts[w];
+  }
+  if (split) {
+    first[slot] = b;
+    last[slot] = e;
+    ids[slot] = s;
+  }
+  __syncthreads();
+  return listed;
+}
+
 // second launch: a block reads the spans of kCombineThreads segments, one
 // a thread, and lists those longer than P in shared memory (a prefix count
 // of the warps' ballots, no atomics); its warps take the list's entries in
@@ -231,27 +437,8 @@ segment_combine_kernel(const float* __restrict__ scratch,
   __shared__ int counts[kCombineThreads / 32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t s = (int64_t)blockIdx.x * kCombineThreads + threadIdx.x;
-  int64_t end = __ldg(starts + N);
-  end = end < E ? end : E;
-  int64_t b = 0, e = 0;
-  if (s < N) span(starts, end, s, b, e);
-  const bool split = e - b > kSplitRows;
-  const unsigned ballot = __ballot_sync(0xffffffffu, split);
-  if (lane == 0) counts[warp] = __popc(ballot);
-  __syncthreads();
-  int slot = __popc(ballot & ((1u << lane) - 1)), listed = 0;
-  for (int w = 0; w < kCombineThreads / 32; ++w) {
-    slot += w < warp ? counts[w] : 0;
-    listed += counts[w];
-  }
-  if (split) {
-    first[slot] = b;
-    last[slot] = e;
-    ids[slot] = s;
-  }
-  __syncthreads();
-
+  const int listed = list_long_segments<kCombineThreads>(
+      starts, E, N, first, last, ids, counts);
   const int64_t col = (int64_t)blockIdx.y * (32 * VEC) + lane * VEC;
   if (col >= W) return;
   for (int j = warp; j < listed; j += kCombineThreads / 32) {
@@ -279,45 +466,145 @@ segment_combine_kernel(const float* __restrict__ scratch,
   }
 }
 
+// second launch at G = 1 << log_group < 32: the listed segments go to the
+// groups of G lanes in turn, 32 / G a warp; a group adds the partials of
+// its segment in ascending k, kAhead partials in flight a lane
+template <int VEC>
+__global__ void __launch_bounds__(kCombineGroupThreads)
+segment_combine_groups_kernel(const float* __restrict__ scratch,
+                              const int* __restrict__ starts,
+                              float* __restrict__ out, int64_t E, int N,
+                              int W, int log_group) {
+  __shared__ int64_t first[kCombineGroupThreads], last[kCombineGroupThreads];
+  __shared__ int64_t ids[kCombineGroupThreads];
+  __shared__ int counts[kCombineGroupThreads / 32];
+  const int lane = threadIdx.x % 32;
+  const int listed = list_long_segments<kCombineGroupThreads>(
+      starts, E, N, first, last, ids, counts);
+  const int64_t col = (int64_t)(lane & ((1 << log_group) - 1)) * VEC;
+  if (col >= W) return;
+  const int groups = kCombineGroupThreads >> log_group;  // in the block
+  for (int j = threadIdx.x >> log_group; j < listed; j += groups) {
+    // piece k >= 1 of the segment is in chunk b / P + k
+    const int64_t pieces = (last[j] - first[j] + kSplitRows - 1) / kSplitRows;
+    float* o = out + ids[j] * W + col;
+    float acc[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = o[i];
+    add_rows_ahead<float, VEC>(
+        scratch + (first[j] / kSplitRows + 1) * W + col, pieces - 1, W, acc);
+    store<VEC>(acc, o);
+  }
+}
+
+// (VEC, G) of a launch on rows of `elem`-byte values whose address is a
+// multiple of `align` bytes (a power of two, at most 32): the widest
+// vector the width and the alignment allow, then the lanes a row needs
+struct Mapping {
+  int vec, group;
+};
+Mapping mapping(int W, int elem, int align) {
+  const int vec = W % 256 == 0 && align % (8 * elem) == 0 ? 8
+                  : W % 4 == 0 && align % (4 * elem) == 0 ? 4
+                                                          : 1;
+  const int lanes = (W + vec - 1) / vec;
+  int group = 1;
+  while (group < lanes && group < 32) group *= 2;
+  return {vec, group};
+}
+
+int log2_of(int group) {  // group: a power of two
+  int k = 0;
+  while ((1 << k) < group) ++k;
+  return k;
+}
+
+// the largest power of two, up to 32, that divides addr
+int alignment(uintptr_t addr) {
+  int align = 1;
+  while (align < 32 && addr % (2 * align) == 0) align *= 2;
+  return align;
+}
+
 template <typename T, int VEC>
 void launch(const void* data, const int* starts, float* out, float* scratch,
-            int64_t E, int N, int W, cudaStream_t stream) {
-  // no segment is longer than P unless E is: then one launch does it all
-  const int64_t chunks = E > kSplitRows ? (E + kSplitRows - 1) / kSplitRows
-                                        : 0;
+            int64_t E, int N, int W, int64_t chunks, cudaStream_t stream) {
   const dim3 grid((unsigned)((chunks + N + kWarps - 1) / kWarps),
                   (W + 32 * VEC - 1) / (32 * VEC));
   segment_sum_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(data), starts, out, scratch, E, N, W, chunks);
-  if (chunks == 0) return;
-  // the output and the scratch (fresh allocations) are aligned for float4
-  // wherever W % 4 == 0
+}
+
+template <typename T, int VEC>
+void launch_groups(const void* data, const int* starts, float* out,
+                   float* scratch, int64_t E, int N, int W, int64_t chunks,
+                   int group, cudaStream_t stream) {
+  const int64_t per_block = (int64_t)kGroupWarps * (32 / group);  // items
+  const unsigned blocks = (unsigned)((chunks + N + per_block - 1)
+                                     / per_block);
+  segment_groups_kernel<T, VEC><<<blocks, kGroupWarps * 32, 0, stream>>>(
+      static_cast<const T*>(data), starts, out, scratch, E, N, W, chunks,
+      log2_of(group));
+}
+
+// the second launch; the output and the scratch (fresh allocations) are
+// aligned for float4 wherever W % 4 == 0
+void launch_combine(const float* scratch, const int* starts, float* out,
+                    int64_t E, int N, int W, cudaStream_t stream) {
+  const Mapping m = mapping(W, 4, 16);  // VEC 4 or 1
+  if (m.group < 32) {
+    const unsigned blocks = (unsigned)((N + kCombineGroupThreads - 1)
+                                      / kCombineGroupThreads);
+    if (m.vec == 4)
+      segment_combine_groups_kernel<4><<<blocks, kCombineGroupThreads, 0,
+                                         stream>>>(
+          scratch, starts, out, E, N, W, log2_of(m.group));
+    else
+      segment_combine_groups_kernel<1><<<blocks, kCombineGroupThreads, 0,
+                                         stream>>>(
+          scratch, starts, out, E, N, W, log2_of(m.group));
+    return;
+  }
   const unsigned blocks = (unsigned)((N + kCombineThreads - 1)
                                     / kCombineThreads);
-  if (W % 4 == 0)
+  if (m.vec == 4) {
     segment_combine_kernel<4><<<dim3(blocks, (W + 127) / 128),
                                 kCombineThreads, 0, stream>>>(
         scratch, starts, out, E, N, W);
-  else
+  } else {
     segment_combine_kernel<1><<<dim3(blocks, (W + 31) / 32),
                                 kCombineThreads, 0, stream>>>(
         scratch, starts, out, E, N, W);
+  }
 }
 
 template <typename T>
 void launch_any_width(const void* data, const int* starts, float* out,
                       float* scratch, int64_t E, int N, int W,
                       cudaStream_t stream) {
-  // the widest vector the width and the rows' alignment allow; the output
-  // (a fresh allocation) is aligned for float4 wherever W % 4 == 0
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(data);
-  if (W % 256 == 0 && addr % (8 * sizeof(T)) == 0)
-    launch<T, 8>(data, starts, out, scratch, E, N, W, stream);
-  else if (W % 4 == 0 && addr % (4 * sizeof(T)) == 0)
-    launch<T, 4>(data, starts, out, scratch, E, N, W, stream);
-  else
-    launch<T, 1>(data, starts, out, scratch, E, N, W, stream);
+  // no segment is longer than P unless E is: then one launch does it all
+  const int64_t chunks = E > kSplitRows ? (E + kSplitRows - 1) / kSplitRows
+                                        : 0;
+  const Mapping m = mapping(W, sizeof(T),
+                            alignment(reinterpret_cast<uintptr_t>(data)));
+  if (m.group < 32) {
+    if (m.vec == 4)
+      launch_groups<T, 4>(data, starts, out, scratch, E, N, W, chunks,
+                          m.group, stream);
+    else
+      launch_groups<T, 1>(data, starts, out, scratch, E, N, W, chunks,
+                          m.group, stream);
+  } else if (m.vec == 8) {
+    launch<T, 8>(data, starts, out, scratch, E, N, W, chunks, stream);
+  } else if (m.vec == 4) {
+    launch<T, 4>(data, starts, out, scratch, E, N, W, chunks, stream);
+  } else {
+    launch<T, 1>(data, starts, out, scratch, E, N, W, chunks, stream);
+  }
+  if (chunks > 0) launch_combine(scratch, starts, out, E, N, W, stream);
 }
+
+const int kElemBytes[] = {4, 2, 2};  // by dtype code
 
 }  // namespace
 
@@ -340,3 +627,16 @@ extern "C" int madrigal_sorted_segment_sum(const void* data, const void* starts,
 }
 
 extern "C" int madrigal_segment_split_rows(void) { return kSplitRows; }
+
+// G and VEC of the first launch at width W for rows of dtype (as above)
+// whose address is a multiple of `align` bytes (a power of two; any
+// multiple of 32 counts as 32); -1 for another dtype
+extern "C" int madrigal_segment_lane_group(int W, int dtype, int align) {
+  if (dtype < 0 || dtype > 2 || W <= 0 || align <= 0) return -1;
+  return mapping(W, kElemBytes[dtype], alignment(align)).group;
+}
+
+extern "C" int madrigal_segment_vector(int W, int dtype, int align) {
+  if (dtype < 0 || dtype > 2 || W <= 0 || align <= 0) return -1;
+  return mapping(W, kElemBytes[dtype], alignment(align)).vec;
+}

@@ -12,7 +12,8 @@ make: the segment sums and softmax denominators of `ops/segment.py`
 
 `sorted_segment_sum` launches the hand-written CUDA kernel
 (`csrc/segment_sum.cu`: f32 sums in a fixed order, long segments split
-into pieces of `split_rows()` rows that run on warps of their own, no
+into pieces of `split_rows()` rows that run on lanes of their own, rows
+narrower than a warp's span summed by groups of lanes, `lane_group`; no
 atomics) for CUDA tensors and runs `sorted_segment_sum_plain` for CPU
 tensors; there is no fallback between the two. The kernel is built at
 first use by `ops/_build.py`. `sorted_segment_sum_ordered` takes the
@@ -54,6 +55,38 @@ def supports_sorted_segment_sum(dtype: torch.dtype, width: int) -> bool:
     128, which is the TPU's lane width; the CUDA kernel has a scalar path
     for any width."""
     return dtype in _DTYPE_CODE and width > 0
+
+
+def row_alignment(address: int) -> int:
+    """The largest power of two, up to 32, that divides `address` (the
+    rows' first byte): what the kernel reads of the rows' alignment."""
+    align = 1
+    while align < 32 and address % (2 * align) == 0:
+        align *= 2
+    return align
+
+
+def lane_group(width: int, dtype: torch.dtype, align: int) -> tuple:
+    """(VEC, G) of the kernel's first launch on [E, width] rows of `dtype`
+    whose address is a multiple of `align` bytes, as `mapping` in
+    `csrc/segment_sum.cu` picks them: VEC, the values a lane loads of a
+    row, is 8 where the width is a multiple of 256, 4 where it is a
+    multiple of 4, each only where the rows are aligned for that load,
+    else 1; G, the lanes a row takes, is ceil(width / VEC) rounded up to
+    a power of two, at most 32. A warp sums 32 / G pieces at once, one a
+    group of G lanes."""
+    elem = torch.finfo(dtype).bits // 8
+    align = row_alignment(align)
+    if width % 256 == 0 and align % (8 * elem) == 0:
+        vec = 8
+    elif width % 4 == 0 and align % (4 * elem) == 0:
+        vec = 4
+    else:
+        vec = 1
+    group = 1
+    while group < -(-width // vec) and group < 32:
+        group *= 2
+    return vec, group
 
 
 def row_segments(starts: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -144,18 +177,31 @@ def sorted_segment_sum_ordered(data: torch.Tensor, starts: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _kernel() -> tuple:
-    """(the kernel's C entry, P), from the library built at first use."""
+    """(the kernel's C entry, P, its library), from the library built at
+    first use."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib = _build.load("segment_sum", "madrigal_sorted_segment_sum",
                       [vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp])
     lib.madrigal_segment_split_rows.argtypes = []
     lib.madrigal_segment_split_rows.restype = ci
-    return lib.madrigal_sorted_segment_sum, lib.madrigal_segment_split_rows()
+    for entry in (lib.madrigal_segment_lane_group,
+                  lib.madrigal_segment_vector):
+        entry.argtypes, entry.restype = [ci, ci, ci], ci
+    return (lib.madrigal_sorted_segment_sum,
+            lib.madrigal_segment_split_rows(), lib)
 
 
 def split_rows() -> int:
     """P, the rows of a piece, from the built kernel (needs nvcc)."""
     return _kernel()[1]
+
+
+def kernel_lane_group(width: int, dtype: torch.dtype, align: int) -> tuple:
+    """(VEC, G) as the built kernel picks them (needs nvcc): what
+    `lane_group` mirrors."""
+    lib, code = _kernel()[2], _DTYPE_CODE[dtype]
+    return (lib.madrigal_segment_vector(width, code, align),
+            lib.madrigal_segment_lane_group(width, code, align))
 
 
 # the current stream's raw handle, without making the Stream object of
@@ -215,7 +261,7 @@ def sorted_segment_sum(data: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((num_segments, W), dtype=torch.float32, device=dev)
     if num_segments == 0:
         return out
-    kernel, P = _kernel()
+    kernel, P, _ = _kernel()
     stream = (_raw_stream(dev.index) if _raw_stream is not None
               else torch.cuda.current_stream(dev).cuda_stream)
     # the pieces' partials; no segment is longer than P unless E is

@@ -101,14 +101,21 @@ def _sorted_rows(cuda, e, n, w, real, seed):
                                         (4096, 1001, 128, 4000),
                                         (300, 5, 384, 300), (0, 3, 256, 0),
                                         (500, 21, 96, 480), (200, 9, 37, 200),
-                                        (64, 4, 1, 60)])
+                                        (64, 4, 1, 60), (3000, 70, 2, 2990),
+                                        (3000, 70, 3, 3000),
+                                        (2000, 1001, 4, 1990),
+                                        (700, 23, 7, 690), (900, 31, 8, 900),
+                                        (1500, 40, 16, 1450),
+                                        (800, 33, 31, 790), (600, 9, 32, 600),
+                                        (1200, 65, 64, 1100),
+                                        (400, 17, 127, 399)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_segment_sum_kernel_matches_plain(cuda, e, n, w, real, dtype,
                                           aligned):
     """Widths taking each of the kernel's vector paths (8, 4 and 1 values
-    a lane), and rows that start off the vector alignment (the scalar
-    path)."""
+    a lane) and each group size (`lane_group`: G = 1 to 32 lanes a row),
+    and rows that start off the vector alignment (the scalar path)."""
     data, starts = _sorted_rows(cuda, e, n, w, real, seed=e + n)
     data = data.to(DTYPES[dtype])
     if not aligned:  # the same rows one element into a larger buffer
@@ -127,6 +134,21 @@ def test_segment_sum_kernel_matches_plain(cuda, e, n, w, real, dtype,
     ref = ts.sorted_segment_sum_plain(data, starts, n)
     err = (got - ref).abs().max().item() if n else 0.0
     assert err <= 1e-5 * max(ref.abs().max().item(), 1.0)
+
+
+@pytest.mark.cuda
+def test_segment_lane_group_matches_mirror(cuda):
+    """The built kernel's (VEC, G) (its C entries) equal the Python
+    mirror `lane_group` for W in 1..512, each dtype and each alignment of
+    the rows' address."""
+    for dtype in DTYPES.values():
+        elem = torch.finfo(dtype).bits // 8
+        for align in (2, 4, 8, 16, 32, 64):
+            if align < elem:
+                continue
+            for w in range(1, 513):
+                assert ts.kernel_lane_group(w, dtype, align) == \
+                    ts.lane_group(w, dtype, align), (w, dtype, align)
 
 
 @pytest.mark.cuda
@@ -452,14 +474,17 @@ def test_two_gloo_ranks_on_card_match_one_card(cuda, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("draw", ["uniform", "hub", "zipf", "about_p"])
-@pytest.mark.parametrize("w", [1, 4, 7, 128, 256])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 7, 8, 16, 31, 32, 64, 96, 127,
+                               128, 256, 384])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_segment_sum_kernel_skewed_and_narrow(cuda, draw, w, dtype,
                                               aligned):
     """K2 at the widths of its uses (4: the softmax denominators, one
-    column a head; 128: the messages; 256: the fused k|v table) and at
-    the scalar path's (1, 7), on rows grouped uniformly, with one hub
+    column a head; 128: the messages; 256: the fused k|v table), at the
+    scalar path's (1, 3, 7, 31, 127) and at widths taking each group size
+    of lanes a row (G = 1 at 1 and 4, 2 at 2 and 8, 4 at 3 and 16, 8 at 7
+    and 32, 16 at 64, 32 from 96 f32), on rows grouped uniformly, with one hub
     segment holding a quarter of them, by a Zipf-like draw, and in
     segments of P - 1, P, P + 1 and 2P rows (P = split_rows()). On randn
     rows it equals `sorted_segment_sum_ordered` (its order of the sums)

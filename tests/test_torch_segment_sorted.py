@@ -44,6 +44,8 @@ from madrigal_tpu_torch.models.hgt import HGTEncoder
 from madrigal_tpu_torch.ops import gather as t_gather
 from madrigal_tpu_torch.ops.gather import gather_rows_sorted
 from madrigal_tpu_torch.ops.segment_sorted import (
+    lane_group,
+    row_alignment,
     segment_starts_np,
     sorted_segment_sum,
     sorted_segment_sum_ordered,
@@ -262,6 +264,39 @@ def test_starts_and_gate_match_jax():
             if supports_mxu_segment_sum(jdt, w):
                 assert supports_sorted_segment_sum(dt, w)
             assert supports_sorted_segment_sum(dt, w) == (dt != torch.float64)
+
+
+@pytest.mark.parametrize("dtype,align", [
+    (dt, a) for dt in (torch.float32, torch.bfloat16, torch.float16)
+    for a in (2, 4, 8, 16, 32) if a >= torch.finfo(dt).bits // 8])
+def test_lane_group_mapping(dtype, align):
+    """The Python mirror of the kernel's mapping of rows to lanes
+    (`lane_group`), for W in 1..1024 on rows of `dtype` whose address is
+    a multiple of `align` bytes and of no larger power of two: VEC is the
+    vector the kernel's dispatch takes on such an address (8 values where
+    W % 256 == 0 and the address is a multiple of 8 values' bytes, 4
+    where W % 4 == 0 and it is a multiple of 4 values' bytes, else 1); G
+    is a power of two of at most 32 lanes whose G * VEC columns cover the
+    row, the least such, and 32 wherever a row needs a whole warp; a warp
+    takes 32 / G items."""
+    elem = torch.finfo(dtype).bits // 8
+    address = (1 << 20) + align  # a multiple of align, not of 2 * align
+    assert row_alignment(address) == align
+    for w in range(1, 1025):
+        vec, g = lane_group(w, dtype, address)
+        if w % 256 == 0 and address % (8 * elem) == 0:
+            assert vec == 8
+        elif w % 4 == 0 and address % (4 * elem) == 0:
+            assert vec == 4
+        else:
+            assert vec == 1
+        assert g in (1, 2, 4, 8, 16, 32)
+        assert 32 % g == 0 and (32 // g) * g == 32  # items a warp
+        assert g * vec >= w or g == 32
+        assert g == 1 or (g // 2) * vec < w  # the least power of two
+        if w >= 32 * vec:
+            assert g == 32
+        assert lane_group(w, dtype, align) == (vec, g)
 
 
 def test_wrapper_refuses_other_devices():
