@@ -159,9 +159,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
      the CPU against the card;
  11a. profile: `utils.profiling.trace` (torch.profiler) around one K1
      call at the serving shape and one training step at phase 11's
-     shapes: each trace names its kernel's symbol; the top device
-     operations and the device's busy share of each; StepTimer over
-     PROFILE_STEPS steps; memory_stats();
+     shapes: each trace names its kernel's symbol; the port's spans
+     (`utils.profiling.recorded`) by name, their count and device ms;
+     the top device operations and the device's busy share of each;
+     StepTimer over PROFILE_STEPS steps; memory_stats();
  12. stage1: the stage-1 CLI at the flagship encoder's widths: kg at the
      full reference scale (seed 0) for STAGE1_KG_EPOCHS full-graph steps
      (K2 at the link split's message-edge shapes, launches a step; the
@@ -4213,6 +4214,16 @@ def phase_pretrain_embeds(enc_cfg, ds, before: dict, after: dict):
     return counts
 
 
+def span_ms(records) -> dict:
+    """{span name: [count, device ms summed, largest live GB at an exit]}
+    of the port's span records (`utils.profiling.recorded`)."""
+    out = {}
+    for r in records:
+        n, ms, gb = out.get(r.name, (0, 0.0, 0.0))
+        out[r.name] = [n + 1, ms + r.device_ms, max(gb, r.live_bytes / 1e9)]
+    return out
+
+
 def trace_summary(log_dir: Path, symbols) -> dict:
     """From the Chrome trace in `log_dir`: the window (first to last
     event), the device's busy time in it (the union of its kernels,
@@ -4306,8 +4317,9 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
     flagship at the training phase's shapes (the reference scale /
     SYNTHETIC_TRAIN_SHRINK, the HGT remat), after one
     untraced step: each trace must name K1's kernel (`gemm_f32`) or K2's
-    (`segment_sum_kernel`); each trace's top device operations and busy
-    share; StepTimer's summary over PROFILE_STEPS more steps;
+    (`segment_sum_kernel`), and the port's spans (`span_ms`) K1's call or
+    the step's phases and K2's calls; each trace's top device operations
+    and busy share; StepTimer's summary over PROFILE_STEPS more steps;
     memory_stats()."""
     from madrigal_tpu_torch.utils import profiling
 
@@ -4332,14 +4344,14 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
     torch.cuda.synchronize()
     reset_launches()  # counts start here
     with profiling.trace(str(work / "k1")):
-        with profiling.annotate("k1_serving_chunk"):
-            scores = bilinear.bilinear_scores(zh, zt, w, f32, f32)
+        scores = bilinear.bilinear_scores(zh, zt, w, f32, f32)
         torch.cuda.synchronize()
+    spans = {"k1": span_ms(profiling.recorded())}
     trainer.train_epoch()  # untraced: the step's first allocations
     with profiling.trace(str(work / "step")):
-        with profiling.annotate("training_step"):
-            losses = trainer.train_epoch()
+        losses = trainer.train_epoch()
         torch.cuda.synchronize()
+    spans["step"] = span_ms(profiling.recorded())
     timer = profiling.StepTimer()
     for _ in range(PROFILE_STEPS):
         timer.start()
@@ -4357,9 +4369,14 @@ def phase_profile(w_sym: torch.Tensor, z: np.ndarray):
         require(all(ms > 0 for ms in tr["kernel_ms"].values()),
                 f"profile: the {name} trace names no kernel of "
                 f"{list(tr['kernel_ms'])}")
+    require(set(spans["k1"]) == {"madrigal.k1"} and {
+        "madrigal.draw", "madrigal.forward", "madrigal.kg_pass",
+        "madrigal.backward", "madrigal.optimizer", "madrigal.k2"}
+        == set(spans["step"]), f"profile: the port's spans {spans}")
     emit({"phase": "profile", "k1_shape": [LABEL_CHUNK, SERVE_HEADS,
                                            NUM_DRUGS],
           "step_shrink": SYNTHETIC_TRAIN_SHRINK, "traces": traces,
+          "spans": spans,
           "step_timer": timer.summary(), "memory": profiling.memory_stats(),
           "launches": counts, "k2_expected": k2_want})
     del trainer, batch, kg

@@ -37,6 +37,7 @@ import torch
 
 from ..device import copy_to_host, resolve_device
 from ..ops.bilinear import bilinear_scores
+from ..utils.profiling import span
 
 TILE = 128  # the JAX package's tri-tile packing block
 
@@ -114,9 +115,10 @@ def normalized_ranks_for_outcomes(
     buffers."""
     out = bilinear_scores(z, z, w_sym.contiguous(), out_dtype=torch.float32,
                           compute_dtype=compute_dtype)
-    order_idx = lower_tri_order(z.shape[0], not stable, z.device)
-    for l in range(out.shape[0]):
-        out[l] = rank_lower(out[l], order_idx, stable)
+    with span("madrigal.rank_sort"):
+        order_idx = lower_tri_order(z.shape[0], not stable, z.device)
+        for l in range(out.shape[0]):
+            out[l] = rank_lower(out[l], order_idx, stable)
     return out
 
 

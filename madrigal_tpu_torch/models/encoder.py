@@ -32,6 +32,7 @@ from ..constants import NUM_CELL_LINES
 from ..data.batch import DrugModalityBatch
 from ..data.kg import EdgeType, HeteroKGBatch, edge_key
 from ..device import resolve_device
+from ..utils.profiling import span
 from .chemcpa import ChemCPAEncoder
 from .decoder import BilinearDDIScorer
 from .fusion import PositionEncoding, TransformerFusion, build_bottleneck_masks
@@ -152,7 +153,8 @@ class MadrigalEncoder(nn.Module):
 
     def kg_drug_table(self, kg: HeteroKGBatch) -> torch.Tensor:
         """Full-KG message passing once -> drug-node table [N_kg_drugs, D]."""
-        return self.kg_encoder(kg)["drug"]
+        with span("madrigal.kg_pass"):
+            return self.kg_encoder(kg)["drug"]
 
     def modality_tokens(self, batch: DrugModalityBatch,
                         kg: Optional[HeteroKGBatch] = None,

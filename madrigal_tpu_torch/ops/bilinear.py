@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils.profiling import span
 
 D = 128
 
@@ -73,6 +74,13 @@ def bilinear_scores(z_head: torch.Tensor, z_tail: torch.Tensor,
                                      compute_dtype)
     if z_head.device.type != "cuda":
         raise ValueError(f"unsupported device {z_head.device}")
+    with span("madrigal.k1"):
+        return _cuda_scores(z_head, z_tail, w_sym, out_dtype, compute_dtype)
+
+
+def _cuda_scores(z_head, z_tail, w_sym, out_dtype, compute_dtype):
+    """bilinear_scores on CUDA tensors: the casts, the output and the
+    launch."""
     for dt, what in ((compute_dtype, "compute_dtype"), (out_dtype, "out_dtype")):
         if dt not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{what} must be float32 or bfloat16, got {dt}")

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils.profiling import span
 
 
 def segment_starts_np(sorted_ids: np.ndarray, num_segments: int,
@@ -248,6 +249,16 @@ def sorted_segment_sum(data: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"unsupported device {data.device}")
     if data.dim() != 2:
         raise ValueError(f"data must be [E, W], got {tuple(data.shape)}")
+    with span("madrigal.k2") as record:
+        if record is not None:  # a profiler records: the call's shape
+            record.attrs = {"rows": data.shape[0], "segments": num_segments,
+                            "width": data.shape[1], "dtype": data.dtype}
+        return _cuda_sums(data, starts, num_segments)
+
+
+def _cuda_sums(data, starts, num_segments):
+    """sorted_segment_sum on CUDA tensors: the checks, the output and the
+    launch."""
     E, W = data.shape
     if not supports_sorted_segment_sum(data.dtype, W):
         raise ValueError(f"data must be float32, bfloat16 or float16 rows "

@@ -38,6 +38,7 @@ from ..constants import NON_TX_MODALITIES
 from ..data.collate import DDIBatch
 from ..data.kg import HeteroKGBatch
 from ..models.encoder import MadrigalMultilabel
+from ..utils.profiling import span
 from .losses import masked_bce
 from .masking import FinetuneMasker
 from .optim import create_optimizer
@@ -161,9 +162,10 @@ class FinetuneTrainer:
     def train_epoch(self) -> Dict[str, float]:
         """One step over the full batch; returns the forwards' losses and
         their sum under 'total'."""
-        mh, mt = self.masker.sample_epoch()
-        mh = torch.from_numpy(np.ascontiguousarray(mh)).to(self.device)
-        mt = torch.from_numpy(np.ascontiguousarray(mt)).to(self.device)
+        with span("madrigal.draw"):
+            mh, mt = self.masker.sample_epoch()
+            mh = torch.from_numpy(np.ascontiguousarray(mh)).to(self.device)
+            mt = torch.from_numpy(np.ascontiguousarray(mt)).to(self.device)
         if self.masker.uses_three_way_loss:
             plan = []
             if self.cfg.train_with_str_str:
@@ -175,29 +177,37 @@ class FinetuneTrainer:
 
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        table = (self.model.encoder.kg_drug_table(self.kg)
-                 if self._kg_table_fn is None else self._kg_table_fn(self.kg))
+        with span("madrigal.forward"):
+            table = (self.model.encoder.kg_drug_table(self.kg)
+                     if self._kg_table_fn is None
+                     else self._kg_table_fn(self.kg))
         shared = table.detach().requires_grad_()
         losses = {}
         for name, h, t, w in plan:
-            loss = self._forward_loss(h, t, w, shared)
+            with span("madrigal.forward"):
+                loss = self._forward_loss(h, t, w, shared)
             if loss.requires_grad:  # a shard may hold none of the triples
-                loss.backward()
+                with span("madrigal.backward"):
+                    loss.backward()
             losses[name] = loss.detach()
-        if shared.grad is not None:
-            table.backward(shared.grad)
-        elif self._kg_table_fn is not None:
-            # the graph-parallel backward is collective: every rank runs it
-            table.backward(torch.zeros_like(table))
-        for p in self.params:
-            # a parameter the loss does not reach gets a zero gradient, so
-            # AdamW still decays it and advances its moments, as optax does
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self._reduce_grads is not None:
-            self._reduce_grads()
-        self.optimizer.step()
-        self.scheduler.step()
+        with span("madrigal.backward"):
+            if shared.grad is not None:
+                table.backward(shared.grad)
+            elif self._kg_table_fn is not None:
+                # the graph-parallel backward is collective: every rank
+                # runs it
+                table.backward(torch.zeros_like(table))
+        with span("madrigal.optimizer"):
+            for p in self.params:
+                # a parameter the loss does not reach gets a zero gradient,
+                # so AdamW still decays it and advances its moments, as
+                # optax does
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self._reduce_grads is not None:
+                self._reduce_grads()
+            self.optimizer.step()
+            self.scheduler.step()
         self.epoch += 1
         values = torch.stack(list(losses.values()))
         if self.loss_group is not None:

@@ -36,6 +36,7 @@ from ..data.collate import DDICollator
 from ..data.kg import HeteroKGBatch
 from ..data.pipeline import prefetch_epochs, to_device
 from ..models.simclr import SimCLRModel
+from ..utils.profiling import span
 from .optim import LARS, half_cycle_cosine_schedule
 from .pretrain_masks import get_pretrain_masks, sample_pretrain_masks
 
@@ -139,34 +140,39 @@ class CLPretrainer:
         batch_or_ids, m1, m2 = payload
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        table = (None if self._kg_table_fn is None
-                 else self._kg_table_fn(self.kg))
-        if self.full_batch is not None:
-            _, _, (_, _, loss) = self.model(self.full_batch, self.kg, m1, m2,
-                                            kg_drug_table=table,
-                                            ids=batch_or_ids)
-        else:
-            _, _, (_, _, loss) = self.model(batch_or_ids, self.kg, m1, m2,
-                                            kg_drug_table=table)
-        loss.backward()
-        for p in self.params:
-            # a parameter the loss does not reach (the fusion transformer
-            # under raw_encoder_output) gets a zero gradient, so it is
-            # still decayed and its moments advance, as in optax
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self._reduce_grads is not None:
-            self._reduce_grads()
-        self.optimizer.step()
-        self.scheduler.step()
+        with span("madrigal.forward"):
+            table = (None if self._kg_table_fn is None
+                     else self._kg_table_fn(self.kg))
+            if self.full_batch is not None:
+                _, _, (_, _, loss) = self.model(
+                    self.full_batch, self.kg, m1, m2, kg_drug_table=table,
+                    ids=batch_or_ids)
+            else:
+                _, _, (_, _, loss) = self.model(batch_or_ids, self.kg, m1,
+                                                m2, kg_drug_table=table)
+        with span("madrigal.backward"):
+            loss.backward()
+        with span("madrigal.optimizer"):
+            for p in self.params:
+                # a parameter the loss does not reach (the fusion
+                # transformer under raw_encoder_output) gets a zero
+                # gradient, so it is still decayed and its moments advance,
+                # as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self._reduce_grads is not None:
+                self._reduce_grads()
+            self.optimizer.step()
+            self.scheduler.step()
         self.step += 1
         return loss.detach()
 
     def train_step(self) -> float:
         """One step over a random drug batch, collated and moved
         synchronously; returns the loss."""
-        return float(self._run_step(to_device(self._host_batch(),
-                                              self.device)))
+        with span("madrigal.draw"):
+            payload = to_device(self._host_batch(), self.device)
+        return float(self._run_step(payload))
 
     def train_steps(self, num_steps: int, buffer_size: int = 2
                     ) -> List[float]:

@@ -16,6 +16,7 @@ Ranks on the card equal the port's CPU ranks of the same scores exactly
 ensemble of K1 scores is within 1e-5 of the CPU path's.
 """
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -220,6 +221,81 @@ def test_rank_tensor_on_card_runs_k1_and_equals_cpu_ranks(cuda):
                                     torch.float32)[0].cpu()
         want = tr.normalized_rank_matrix(scores)
         assert torch.equal(torch.from_numpy(got[l]), want)
+
+
+def _span_kernel_ms(path, names):
+    """[(span name, tid, device ms of the kernels launched inside it)] of
+    each user_annotation in `names` of a chrome trace, in time order: a
+    kernel belongs to the span whose thread launched it inside the span
+    (the launch and the kernel share a correlation id)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    kernels = [(launch.get(e["args"].get("correlation")), e["dur"])
+               for e in events if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["tid"], e["name"])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"] in names)
+    return [(name, tid, sum(
+        dur for at, dur in kernels
+        if at is not None and at[1] == tid and t0 <= at[0] <= t1) / 1e3)
+        for t0, t1, tid, name in spans]
+
+
+@pytest.mark.cuda
+def test_spans_time_the_kernels_they_launch(cuda, tmp_path):
+    """Under torch.profiler, a K2 call, a K2 call in a gather's backward
+    (on autograd's thread), a K1 call and a rank call give records in
+    that order, each K1 or K2 record's device time at least the device
+    time of the kernels the trace puts in its span (2 us allowed for the
+    two clocks' resolution), the rank call's `madrigal.k1` and
+    `madrigal.rank_sort` siblings, and the live bytes at each exit."""
+    from madrigal_tpu_torch.data.kg import _src_sort_layout
+    from madrigal_tpu_torch.utils import profiling
+
+    data, starts = _sorted_rows(cuda, 1_200_000, 27_000, 128, 1_190_000, 0)
+    rng = np.random.RandomState(1)
+    n, e = 6843, 200_000
+    idx = rng.randint(0, n, e).astype(np.int32)
+    order, gstarts = _src_sort_layout(idx, np.ones(e, bool), n)
+    gargs = [torch.from_numpy(a).to(cuda) for a in (idx, order, gstarts)]
+    table = torch.randn(n, 128, device=cuda, requires_grad=True)
+    z = torch.randn(n, 128, device=cuda)
+    w = torch.randn(2, 128, 128, device=cuda) / 128 ** 0.5
+    w = w + w.transpose(1, 2)
+
+    def calls():
+        ts.sorted_segment_sum(data, starts, 27_000)
+        gather_rows_sorted(table, *gargs).sum().backward()
+        tb.bilinear_scores(z[:64], z, w, torch.float32, torch.float32)
+        tr.normalized_ranks_for_outcomes(z, w)
+
+    calls()  # untraced: builds, allocations
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        calls()
+        torch.cuda.synchronize()
+    records = profiling.recorded()
+    assert [r.name for r in records] == [
+        "madrigal.k2", "madrigal.k2", "madrigal.k1", "madrigal.k1",
+        "madrigal.rank_sort"]
+    assert all(r.parent is None for r in records)
+    assert records[0].attrs == {"rows": 1_200_000, "segments": 27_000,
+                                "width": 128, "dtype": torch.float32}
+    assert records[1].attrs["segments"] == n
+    assert all(r.device_ms > 0 and r.live_bytes > 0 for r in records)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    kernels = _span_kernel_ms(path, ("madrigal.k1", "madrigal.k2"))
+    assert [k[0] for k in kernels] == [r.name for r in records[:4]]
+    assert kernels[1][1] != kernels[0][1]  # the backward's thread
+    for r, (_, _, ms) in zip(records, kernels):
+        assert ms > 0 and r.device_ms >= ms - 0.002, (r, ms)
 
 
 class _Decoder(torch.nn.Module):

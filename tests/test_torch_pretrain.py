@@ -21,7 +21,9 @@
     are held to twice the schedule's summed rate more, and so are the
     running means, which follow such a bias ahead of their BatchNorm.
     Most tensors move by more than twice the tolerance.
-    `train_steps` gives `train_step`'s losses.
+    `train_steps` gives `train_step`'s losses; the spans recording under
+    torch.profiler leave two steps' losses and weights as they are, bit
+    for bit.
   * The prefetcher keeps order and raises a worker's exception after the
     batches before it.
   * The CLI: `--resume` from `cl_checkpoint_k` ends where the straight run
@@ -330,6 +332,25 @@ def test_train_steps_equal_train_step(data):
     enc = a.encoder_state_dict()
     assert {"base_encoder." + k for k in enc} == {
         k for k in a.model.state_dict() if k.startswith("base_encoder.")}
+
+
+def test_spans_leave_the_step_bit_for_bit(data):
+    """Two steps with the port's spans recording under torch.profiler
+    give the losses and weights of two steps without, bit for bit."""
+    from madrigal_tpu_torch.utils import profiling
+
+    a, b = (port_trainer(data, True, "adamw") for _ in range(2))
+    a.train_step()  # untraced in both runs
+    b.train_step()
+    plain = [a.train_step() for _ in range(2)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = [b.train_step() for _ in range(2)]
+    assert [r.name for r in profiling.recorded()].count(
+        "madrigal.optimizer") == 2
+    assert plain == traced
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[k], v), k
 
 
 def test_prefetcher_order_and_errors():

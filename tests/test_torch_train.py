@@ -23,12 +23,15 @@
     model's largest): Adam's 1/sqrt(v) turns that noise into an update of
     up to lr in either direction.
   * Every other finetune mode trains a step: finite losses, under the
-    keys of its forwards; --frozen trains the decoder only.
+    keys of its forwards; --frozen trains the decoder only; the spans
+    recording under torch.profiler leave a step's losses and weights as
+    they are, bit for bit.
 
 The training CLI, the mask sampler, the losses and early stopping are
 held to the JAX package in tests/test_torch_train_cli.py, which shares
 this module's CLI flags.
 """
+import contextlib
 import dataclasses
 
 import flax.linen as fnn
@@ -403,6 +406,35 @@ def test_every_other_mode_trains_a_step(data, mode):
     assert set(losses) == ({"X_X", "str_X", "total"}
                            if tt.masker.uses_three_way_loss else {"total"})
     assert all(np.isfinite(v) for v in losses.values()), losses
+
+
+def test_spans_leave_the_step_bit_for_bit(data):
+    """Two steps with the port's spans recording under torch.profiler
+    give the losses and weights of two steps without, bit for bit."""
+    from madrigal_tpu_torch.models.encoder import init_weights
+    from madrigal_tpu_torch.utils import profiling
+
+    dt, _, _, bt, kt = data
+    runs = []
+    for traced in (False, True):
+        cfg = tiny_cfg(t_config, "str_random_sample")
+        model = init_weights(MadrigalMultilabel(
+            cfg.model.encoder, 6, *kg_schema(dt.kg_node_feats,
+                                             dt.kg_edge_indices)),
+            torch.Generator().manual_seed(0))
+        tt = t_ft.FinetuneTrainer(cfg, bt, kt, model)
+        tt.train_epoch()  # untraced in both runs
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU])
+              if traced else contextlib.nullcontext()):
+            losses = [tt.train_epoch() for _ in range(2)]
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    assert [r.name for r in profiling.recorded()].count(
+        "madrigal.optimizer") == 2
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_frozen_trains_the_decoder_only(data):
